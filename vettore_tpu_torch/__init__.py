@@ -1,0 +1,49 @@
+"""vettore-tpu on PyTorch and CUDA: exact flat vector search on an NVIDIA GPU.
+
+The port of the JAX package ``vettore_tpu`` (which stays the reference) to
+PyTorch, with hand-written CUDA kernels for the scan. It has the same public
+API for the slice ported so far — ``Collection`` with the exact flat index,
+f32 and bf16 storage, snapshots — and returns the same results, including
+the ``(rank, id)`` tie order. The device is explicit: ``device="cuda"`` (the
+default) needs a CUDA device; pass ``device="cpu"`` to run on the CPU.
+
+Quick start::
+
+    import vettore_tpu_torch as vt
+
+    col = vt.Collection(name="docs", dimensions=3, index="flat",
+                        metric="cosine", device="cuda")
+    col.put_many([
+        {"id": "east", "vector": [1.0, 0.0, 0.0], "metadata": {"kind": "axis"}},
+        {"id": "north", "vector": [0.0, 1.0, 0.0]},
+    ])
+    results = col.search([1.0, 0.0, 0.0], limit=2)
+"""
+
+from . import errors, observability
+from .collection import Collection, load_snapshot
+from .embedding import Embedding, Result
+from .index.flat import FlatIndex
+from .metrics import METRICS, metric_code, normalize_metric, result_values
+from .ops.scan_host import binary_top_k, vector_top_k
+from .store.memory import MemoryStore
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Collection",
+    "load_snapshot",
+    "Embedding",
+    "Result",
+    "FlatIndex",
+    "MemoryStore",
+    "METRICS",
+    "metric_code",
+    "normalize_metric",
+    "result_values",
+    "vector_top_k",
+    "binary_top_k",
+    "observability",
+    "errors",
+    "__version__",
+]

@@ -1,0 +1,740 @@
+"""Collection orchestration: validation, insert pipeline, flat search,
+snapshot/restore.
+
+The port of ``vettore_tpu/collection.py`` for the exact flat search slice:
+the canonical record store lives on host, the flat index's vector block lives
+on the collection's device and is always rebuildable from the store.
+
+Not ported yet: the HNSW and IVF indexes, mesh sharding, ``compressed=True``
+(it needs the columnar store), and the funnel, quantized, multi-vector and
+hybrid search modes. Asking for any of them raises with a message that says
+so.
+
+Option validation is strict (unknown/duplicate options rejected,
+collection.ex:1116-1157); score/distance semantics follow
+``Distance.result_values`` exactly.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from . import errors as E
+from .embedding import Embedding, Result
+from .index.base import Index, valid_index
+from .index.flat import FlatIndex, resolve_device
+from .metrics import (
+    F32_MAX,
+    MAX_USIZE,
+    METRICS,
+    default_normalize,
+    normalize_metric,
+    result_values,
+)
+from .observability import StatsRegistry, observed
+from .ops.distance import NORMALIZATIONS, normalize_rows, validate_vector
+from .ops.packing import pack_signs_u64_rows, words_for
+from .store.base import Store, valid_store
+from .store.memory import MemoryStore
+
+SNAPSHOT_VERSION = 1
+_SCORE_MODES = ("raw", "similarity")
+
+#: search modes of the JAX package that this package does not have yet
+_NOT_PORTED_MODES = (
+    "put_tokens",
+    "funnel_search",
+    "funnel_search_batch",
+    "funnel_search_batch_device",
+    "quantized_search",
+    "quantized_search_batch",
+    "quantized_search_batch_device",
+    "multi_vector_search",
+    "multi_vector_search_batch",
+    "hybrid_search",
+    "hybrid_search_batch",
+)
+
+
+def _validate_limit(limit):
+    if not isinstance(limit, int) or isinstance(limit, bool) or not 0 < limit <= MAX_USIZE:
+        raise E.InvalidLimit(f"invalid limit: {limit!r}")
+
+
+def _reject_extra(extra: dict):
+    if extra:
+        raise E.UnsupportedOption(next(iter(extra)))
+
+
+def _reject_mesh(mesh):
+    if mesh is not None:
+        raise E.InvalidIndex("mesh sharding is not ported yet")
+
+
+class Collection:
+    """One vector collection: canonical host store + device flat index.
+
+    ``device`` (a ``torch.device`` or a string, default ``"cuda"``) is where
+    the index's vector block lives and where searches run. ``"cuda"`` needs
+    a CUDA device and raises when there is none; pass ``device="cpu"`` to
+    run on the CPU."""
+
+    def __init__(
+        self,
+        *,
+        name=None,
+        dimensions=None,
+        metric="cosine",
+        normalize=None,
+        store="memory",
+        index="flat",
+        index_options=None,
+        score="raw",
+        compressed=False,
+        mesh=None,
+        device="cuda",
+        **extra,
+    ):
+        _reject_extra(extra)
+        metric = normalize_metric(metric)
+        if normalize is None:
+            normalize = default_normalize(metric)
+        if not isinstance(dimensions, int) or isinstance(dimensions, bool) or dimensions <= 0:
+            raise E.InvalidDimensions(f"invalid dimensions: {dimensions!r}")
+        if metric not in METRICS:
+            raise E.InvalidMetric(f"invalid metric: {metric!r}")
+        if normalize not in NORMALIZATIONS:
+            raise E.InvalidNormalization(f"invalid normalization: {normalize!r}")
+        if score not in _SCORE_MODES:
+            raise E.InvalidScoreMode(f"invalid score mode: {score!r}")
+        if not isinstance(compressed, bool):
+            raise E.VettoreError("compressed must be a boolean", reason="invalid_compressed")
+        if index_options is not None and not isinstance(index_options, dict):
+            raise E.InvalidIndexOptions("index_options must be a dict")
+        _reject_mesh(mesh)
+
+        self.name = name
+        self.dimensions = dimensions
+        self.metric = metric
+        self.normalize = normalize
+        self.score = score
+        self.index_kind = index if isinstance(index, str) else "custom"
+        self.index_options = dict(index_options or {})
+        self.compressed = compressed
+        self.device = resolve_device(device)
+
+        self._stats = StatsRegistry()
+        self._index = self._make_index(index, metric, self.index_options, compressed,
+                                       device=self.device)
+        self._store = self._make_store(store, self._config())
+        self._write_lock = threading.RLock()
+        self._version = 0
+
+    # ------------------------------------------------------------------
+    # construction helpers
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _make_index(index, metric, index_options, compressed=False, *, device):
+        if compressed:
+            # the JAX package pairs compressed collections with a bf16
+            # columnar store, which is not ported yet
+            raise E.InvalidStore("compressed=True (bf16 columnar store) is not ported yet")
+        if index == "flat":
+            return FlatIndex(metric, index_options or None, device=device)
+        if isinstance(index, str):
+            raise E.InvalidIndex(f"index {index!r} is not ported yet (only 'flat' is)")
+        if isinstance(index, type):
+            instance = index(metric, index_options)
+        else:
+            instance = index
+        if not valid_index(instance):
+            raise E.InvalidIndex(f"invalid index: {index!r}")
+        return instance
+
+    @staticmethod
+    def _make_store(store, config):
+        if store == "memory":
+            return MemoryStore(config)
+        if store == "columnar":
+            raise E.InvalidStore("the columnar store is not ported yet")
+        if isinstance(store, type):
+            instance = store(config)
+        else:
+            instance = store
+        if not valid_store(instance):
+            raise E.InvalidStore(f"invalid store: {store!r}")
+        return instance
+
+    def _config(self) -> dict:
+        return {
+            "snapshot_version": SNAPSHOT_VERSION,
+            "name": self.name,
+            "dimensions": self.dimensions,
+            "metric": self.metric,
+            "normalize": self.normalize,
+            "score": self.score,
+            "index": self.index_kind,
+            "index_options": self.index_options,
+            "compressed": self.compressed,
+        }
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    def ensure_open(self):
+        alive = getattr(self._store, "alive", None)
+        if callable(alive) and not alive():
+            raise E.Closed("collection is closed")
+
+    def close(self):
+        close = getattr(self._store, "close", None)
+        if callable(close):
+            close()
+
+    def stats(self) -> dict:
+        """Snapshot of per-operation counters and latency aggregates.
+
+        Search timings include the device work (the search APIs copy their
+        results to the host before returning). Ingest timings exclude the
+        device upload, which runs at the next search; bracket with
+        :meth:`sync` when end-to-end ingest latency matters."""
+        return self._stats.snapshot()
+
+    @observed("sync")
+    def sync(self) -> None:
+        """Returns only after every queued device operation has finished."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @property
+    def store(self) -> Store:
+        return self._store
+
+    @property
+    def index(self) -> Index:
+        return self._index
+
+    def _bump(self):
+        self._version += 1
+
+    def refresh(self):
+        """Marks derived state stale (call after mutating a custom store
+        directly, outside the collection API)."""
+        self._bump()
+
+    # ------------------------------------------------------------------
+    # insert pipeline (collection.ex:920-1017)
+    # ------------------------------------------------------------------
+
+    def _prepare_one(self, item) -> Embedding:
+        emb = Embedding.from_input(item)
+        id = emb.id
+        if not (isinstance(id, str) and id):
+            if isinstance(emb.value, str) and emb.value:
+                id = emb.value
+            else:
+                raise E.MissingId("embedding needs an id or a non-empty string value")
+
+        vectors = None
+        if emb.vectors is not None:
+            if not isinstance(emb.vectors, (list, tuple)) or not emb.vectors:
+                raise E.InvalidMultiVector("invalid multi vector")
+            prepared = []
+            for v in emb.vectors:
+                self._validate_dims(v)
+                prepared.append(normalize_rows(np.asarray(v, np.float64)[None, :], self.normalize)[0])
+            vectors = prepared
+
+        if emb.vector is not None:
+            self._validate_dims(emb.vector)
+            vector = normalize_rows(np.asarray(emb.vector, np.float64)[None, :], self.normalize)[0]
+        elif vectors is not None:
+            mean = np.mean(np.stack([v.astype(np.float64) for v in vectors]), axis=0)
+            vector = normalize_rows(mean[None, :], self.normalize)[0]
+        else:
+            raise E.InvalidVector("embedding has no vector")
+
+        binary = pack_signs_u64_rows(vector[None, :])[0]
+        return Embedding(
+            id=id,
+            value=emb.value if emb.value is not None else id,
+            vector=vector,
+            vectors=vectors,
+            binary_vector=[int(w) for w in binary],
+            metadata=emb.metadata,
+        )
+
+    def _prepare_batch(self, items) -> list:
+        """Batch insert preparation. Large homogeneous batches (plain
+        single-vector records) take a vectorized path — one matrix validate /
+        normalize / sign-pack instead of per-record Python work."""
+        if len(items) < 256:
+            return [self._prepare_one(i) for i in items]
+        simple = []
+        for item in items:
+            if isinstance(item, Embedding):
+                if item.vectors is not None or item.vector is None:
+                    return self._prepare_batch_multi(items)
+                id = item.id if isinstance(item.id, str) and item.id else (
+                    item.value if isinstance(item.value, str) and item.value else None
+                )
+                if id is None:
+                    raise E.MissingId("embedding needs an id or a non-empty string value")
+                simple.append((id, item.value if item.value is not None else id,
+                               item.vector, item.metadata))
+            else:
+                if "vectors" in item or "vector" not in item:
+                    return self._prepare_batch_multi(items)
+                id = item.get("id") or item.get("value")
+                if not isinstance(id, str) or not id:
+                    raise E.MissingId("embedding needs an id or a non-empty string value")
+                simple.append((id, item.get("value", id), item["vector"],
+                               item.get("metadata")))
+        try:
+            matrix = np.asarray([row[2] for row in simple], dtype=np.float64)
+        except (TypeError, ValueError) as exc:
+            raise E.InvalidVector("vector must be numeric") from exc
+        if matrix.ndim != 2 or matrix.shape[1] != self.dimensions:
+            raise E.DimensionMismatch("dimension mismatch")
+        if not np.isfinite(matrix).all() or (np.abs(matrix) > F32_MAX).any():
+            raise E.InvalidVector("vector contains a non-finite value")
+        normalized = normalize_rows(matrix, self.normalize)
+        packed = pack_signs_u64_rows(normalized)
+        return [
+            Embedding(id=id, value=value, vector=normalized[i],
+                      vectors=None, binary_vector=[int(w) for w in packed[i]],
+                      metadata=metadata)
+            for i, (id, value, _vec, metadata) in enumerate(simple)
+        ]
+
+    def _prepare_batch_multi(self, items) -> list:
+        """Vectorized preparation for homogeneous MULTI-vector batches (every
+        record carries ``vectors`` with the same token count and no explicit
+        primary vector). Anything ragged or mixed falls back to the
+        per-record path."""
+        rows = []
+        for item in items:
+            if isinstance(item, Embedding):
+                if item.vector is not None or not item.vectors:
+                    return [self._prepare_one(i) for i in items]
+                id = item.id if isinstance(item.id, str) and item.id else (
+                    item.value if isinstance(item.value, str) and item.value else None
+                )
+                if id is None:
+                    raise E.MissingId("embedding needs an id or a non-empty string value")
+                rows.append((id, item.value if item.value is not None else id,
+                             item.vectors, item.metadata))
+            else:
+                if "vector" in item or not item.get("vectors"):
+                    return [self._prepare_one(i) for i in items]
+                id = item.get("id") or item.get("value")
+                if not isinstance(id, str) or not id:
+                    raise E.MissingId("embedding needs an id or a non-empty string value")
+                rows.append((id, item.get("value", id), item["vectors"],
+                             item.get("metadata")))
+        t0 = len(rows[0][2]) if isinstance(rows[0][2], (list, tuple)) else -1
+        if t0 <= 0 or not all(
+            isinstance(r[2], (list, tuple)) and len(r[2]) == t0 for r in rows
+        ):
+            return [self._prepare_one(i) for i in items]
+        try:
+            tokens = np.asarray([r[2] for r in rows], dtype=np.float64)
+        except (TypeError, ValueError):
+            return [self._prepare_one(i) for i in items]
+        if tokens.ndim != 3 or tokens.shape[2] != self.dimensions:
+            raise E.DimensionMismatch("dimension mismatch")
+        if not np.isfinite(tokens).all() or (np.abs(tokens) > F32_MAX).any():
+            raise E.InvalidVector("vector contains a non-finite value")
+        n, t, d = tokens.shape
+        normalized = normalize_rows(tokens.reshape(n * t, d), self.normalize)
+        normalized = normalized.reshape(n, t, d)
+        # mean in f64 over the (f32) normalized tokens — byte parity with
+        # _prepare_one's per-record pipeline
+        primary = normalize_rows(
+            normalized.astype(np.float64).mean(axis=1), self.normalize
+        )
+        packed = pack_signs_u64_rows(primary)
+        return [
+            Embedding(id=id, value=value,
+                      vector=primary[i],
+                      vectors=[normalized[i, j] for j in range(t)],
+                      binary_vector=[int(w) for w in packed[i]],
+                      metadata=metadata)
+            for i, (id, value, _vs, metadata) in enumerate(rows)
+        ]
+
+    def _validate_dims(self, vector):
+        if not isinstance(vector, (list, tuple, np.ndarray)):
+            raise E.InvalidVector("vector must be a list")
+        if len(vector) != self.dimensions:
+            raise E.DimensionMismatch("dimension mismatch")
+        validate_vector(list(vector) if not isinstance(vector, np.ndarray) else vector)
+
+    def put(self, item) -> None:
+        """Inserts or replaces one record (dict or :class:`Embedding`)."""
+        self.put_many([item])
+
+    @observed("put_many")
+    def put_many(self, items: Iterable) -> None:
+        items = list(items)
+        if not all(isinstance(i, (dict, Embedding)) for i in items):
+            raise E.InvalidEmbedding("invalid embeddings")
+        prepared = self._prepare_batch(items)
+        with self._write_lock:
+            self.ensure_open()
+            self._store.put_many(prepared)
+            try:
+                self._index.put_many([(e.id, e.vector) for e in prepared])
+            except Exception:
+                for e in prepared:
+                    self._index.delete(e.id)
+                    self._store.delete(e.id)
+                raise
+            finally:
+                self._bump()
+
+    @observed("put_matrix")
+    def put_matrix(self, ids, matrix, *, values=None, metadata=None) -> None:
+        """Bulk ingest from an [n, d] matrix with one row per id — the
+        million-row path (vectorized validate / normalize / sign-pack; no
+        per-record Python). Per-record ``binary_vector`` is stored as a
+        uint64 ndarray row (accepted everywhere a word list is)."""
+        matrix = np.asarray(matrix)
+        if matrix.dtype.kind not in "iuf":
+            matrix = matrix.astype(np.float64)  # rejects non-numeric input
+        if matrix.ndim != 2:
+            raise E.InvalidVector("matrix must be [n, d]")
+        if matrix.shape[1] != self.dimensions:
+            raise E.DimensionMismatch("dimension mismatch")
+        if len(ids) != matrix.shape[0]:
+            raise E.InvalidVector("ids and matrix row count differ")
+        # validity is dtype-independent: check the input in place instead of
+        # materializing a full-matrix f64 copy first (normalize_rows does its
+        # f64 math in bounded row chunks)
+        if not np.isfinite(matrix).all() or (np.abs(matrix) > F32_MAX).any():
+            raise E.InvalidVector("vector contains a non-finite value")
+        ids = [str(i) for i in ids]
+        if any(not i for i in ids):
+            raise E.MissingId("embedding needs an id or a non-empty string value")
+        normalized = normalize_rows(matrix, self.normalize)
+        packed = pack_signs_u64_rows(normalized)
+        prepared = [
+            Embedding(
+                id=id,
+                value=(values[i] if values is not None else id),
+                vector=normalized[i],
+                vectors=None,
+                binary_vector=packed[i],
+                metadata=(metadata[i] if metadata is not None else None),
+            )
+            for i, id in enumerate(ids)
+        ]
+        with self._write_lock:
+            self.ensure_open()
+            self._store.put_many(prepared)
+            try:
+                index_bulk = getattr(self._index, "put_matrix", None)
+                if callable(index_bulk) and not any(
+                    i in getattr(self._index, "_slot_of", {}) for i in ids
+                ):
+                    index_bulk(ids, normalized.astype(np.float32, copy=False))
+                else:
+                    self._index.put_many([(e.id, e.vector) for e in prepared])
+            except Exception:
+                for e in prepared:
+                    self._index.delete(e.id)
+                    self._store.delete(e.id)
+                raise
+            finally:
+                self._bump()
+
+    def get(self, id: str) -> Embedding:
+        if not isinstance(id, str):
+            raise E.VettoreError("invalid id", reason="invalid_id")
+        return self._store.get(id)
+
+    @observed("delete")
+    def delete(self, id: str) -> None:
+        if not isinstance(id, str):
+            raise E.VettoreError("invalid id", reason="invalid_id")
+        with self._write_lock:
+            self.ensure_open()
+            try:
+                embedding = self._store.get(id)
+            except E.NotFound:
+                self._index.delete(id)
+                self._bump()
+                return
+            self._index.delete(id)
+            try:
+                self._store.delete(id)
+            except Exception as store_error:
+                try:
+                    self._index.put(id, embedding.vector)
+                except Exception as index_error:
+                    raise E.IndexRestoreFailed(store_error, index_error) from store_error
+                raise
+            finally:
+                self._bump()
+
+    def all(self) -> list:
+        self.ensure_open()
+        return self._store.all()
+
+    def count(self) -> int:
+        self.ensure_open()
+        count = getattr(self._store, "count", None)
+        return count() if callable(count) else len(self._store.all())
+
+    # ------------------------------------------------------------------
+    # query preparation and result hydration
+    # ------------------------------------------------------------------
+
+    def prepare_query(self, query) -> np.ndarray:
+        self.ensure_open()
+        self._validate_dims(query)
+        return normalize_rows(np.asarray(query, np.float64)[None, :], self.normalize)[0]
+
+    def _to_result(self, embedding: Embedding, raw: float) -> Result:
+        score, distance = result_values(self.metric, raw, self.score)
+        return Result(
+            id=embedding.id,
+            value=embedding.value,
+            score=score,
+            distance=distance,
+            metric=self.metric,
+            metadata=embedding.metadata,
+        )
+
+    def _hydrate_hits(self, hits) -> list:
+        results = []
+        for id, raw in hits:
+            try:
+                embedding = self._store.get(id)
+            except E.NotFound:
+                continue
+            results.append(self._to_result(embedding, raw))
+        return results
+
+    # ------------------------------------------------------------------
+    # search
+    # ------------------------------------------------------------------
+
+    @observed("search")
+    def search(self, query, *, limit=10, **extra) -> list:
+        """Exact flat search for one query; ``Result`` list, best first."""
+        _reject_extra(extra)
+        _validate_limit(limit)
+        q = self.prepare_query(query)
+        hits = self._index.search(q, limit)
+        return self._hydrate_hits(hits)
+
+    @observed("search_batch")
+    def search_batch(self, queries, *, limit=10, **extra) -> list:
+        """Batched index search: one device dispatch for a query batch."""
+        _reject_extra(extra)
+        _validate_limit(limit)
+        self.ensure_open()
+        if len(queries):
+            try:
+                qs = np.asarray(queries, dtype=np.float64)
+            except (TypeError, ValueError) as exc:
+                raise E.InvalidVector("queries must be numeric") from exc
+            if qs.ndim != 2:
+                raise E.InvalidVector("queries must be a [batch, dims] matrix")
+            if qs.shape[1] != self.dimensions:
+                raise E.DimensionMismatch("dimension mismatch")
+            if not np.isfinite(qs).all() or (np.abs(qs) > F32_MAX).any():
+                raise E.InvalidVector("vector contains a non-finite value")
+            prepared = normalize_rows(qs, self.normalize)
+        else:
+            prepared = np.zeros((0, self.dimensions), np.float32)
+        batch = getattr(self._index, "search_batch", None)
+        if callable(batch):
+            all_hits = batch(prepared, limit)
+        else:
+            all_hits = [self._index.search(q, limit) for q in prepared]
+        return [self._hydrate_hits(hits) for hits in all_hits]
+
+    # ------------------------------------------------------------------
+    # snapshot / restore (collection.ex:135-164,376-433)
+    # ------------------------------------------------------------------
+
+    def snapshot(self, path: str) -> None:
+        """Atomic checksummed snapshot (tmp write + rename, store/ets.ex:29-45).
+        The file format is the JAX package's: either package loads the
+        other's snapshots."""
+        if not isinstance(path, str):
+            raise E.InvalidSnapshot("invalid snapshot path")
+        self.ensure_open()
+        configure = getattr(self._store, "configure", None)
+        if callable(configure):
+            configure(self._config())
+        self._store.snapshot(path)
+
+
+def _not_ported(mode: str):
+    def method(self, *args, **kwargs):
+        raise E.InvalidIndex(f"{mode} is not ported yet (only exact flat search is)")
+
+    method.__name__ = mode
+    return method
+
+
+for _mode in _NOT_PORTED_MODES:
+    setattr(Collection, _mode, _not_ported(_mode))
+
+
+def load_snapshot(path: str, *, name=None, index=None, index_options=None, score=None,
+                  store=None, mesh=None, device="cuda", **extra):
+    """Loads a collection from a snapshot; the index is rebuilt from canonical
+    records, never deserialized. Overrides are restricted to non-structural
+    fields (collection.ex:54,1159-1174) and persist through later snapshots.
+    ``device`` is where the rebuilt index lives, as for :class:`Collection`."""
+    for key in extra:
+        raise E.UnsupportedSnapshotOverride(key)
+    if not isinstance(path, str):
+        raise E.InvalidSnapshot("invalid snapshot path")
+    _reject_mesh(mesh)
+    if store == "columnar":
+        raise E.InvalidStore("the columnar store is not ported yet")
+    store_cls = MemoryStore if store is None else store
+    if not (isinstance(store_cls, type) and callable(getattr(store_cls, "load_snapshot", None))):
+        raise E.InvalidStore(f"invalid store: {store!r}")
+    loaded_store, config = store_cls.load_snapshot(path)
+    try:
+        return _restore(loaded_store, config, name=name, index=index,
+                        index_options=index_options, score=score, device=device)
+    except Exception:
+        close = getattr(loaded_store, "close", None)
+        if callable(close):
+            close()
+        raise
+
+
+def _restore(loaded_store, config, *, name, index, index_options, score, device):
+    if not isinstance(config, dict):
+        raise E.InvalidSnapshot("snapshot config must be a map")
+    if config.get("snapshot_version", 0) not in (0, SNAPSHOT_VERSION):
+        raise E.UnsupportedSnapshotVersion("unsupported snapshot version")
+
+    collection = Collection.__new__(Collection)
+    metric = normalize_metric(config.get("metric", "cosine"))
+    dimensions = config.get("dimensions")
+    normalize = config.get("normalize", default_normalize(metric))
+    index_kind = index if index is not None else config.get("index", "flat")
+    opts = index_options if index_options is not None else config.get("index_options", {}) or {}
+    score_mode = score if score is not None else config.get("score", "raw")
+    compressed = config.get("compressed", False)
+
+    if not isinstance(dimensions, int) or isinstance(dimensions, bool) or dimensions <= 0:
+        raise E.InvalidDimensions(f"invalid dimensions: {dimensions!r}")
+    if metric not in METRICS:
+        raise E.InvalidMetric(f"invalid metric: {metric!r}")
+    if normalize not in NORMALIZATIONS:
+        raise E.InvalidNormalization(f"invalid normalization: {normalize!r}")
+    if score_mode not in _SCORE_MODES:
+        raise E.InvalidScoreMode(f"invalid score mode: {score_mode!r}")
+    if not isinstance(compressed, bool):
+        raise E.VettoreError("compressed must be a boolean", reason="invalid_compressed")
+    if not isinstance(opts, dict):
+        raise E.InvalidIndexOptions("index_options must be a dict")
+
+    collection.name = name if name is not None else config.get("name")
+    collection.dimensions = dimensions
+    collection.metric = metric
+    collection.normalize = normalize
+    collection.score = score_mode
+    collection.index_kind = index_kind if isinstance(index_kind, str) else "custom"
+    collection.index_options = dict(opts)
+    collection.compressed = compressed
+    collection.device = resolve_device(device)
+    collection._stats = StatsRegistry()
+    collection._index = Collection._make_index(index_kind, metric, dict(opts), compressed,
+                                               device=collection.device)
+    collection._store = loaded_store
+    collection._write_lock = threading.RLock()
+    collection._version = 0
+
+    records = loaded_store.all()
+    _validate_snapshot_records(collection, records)
+    records = sorted(records, key=lambda r: r.id)
+    # million-row restore: one stacked matrix through the index's bulk path
+    # (the canonical-store rebuild must stay O(n) numpy — same posture as
+    # put_matrix)
+    index_bulk = getattr(collection._index, "put_matrix", None)
+    mat = None
+    if callable(index_bulk) and records and all(
+        isinstance(r.vector, np.ndarray) and r.vector.shape == (dimensions,)
+        for r in records
+    ):
+        mat = np.concatenate(
+            [r.vector for r in records], dtype=np.float32
+        ).reshape(len(records), dimensions)
+    if mat is not None:
+        index_bulk([r.id for r in records], mat)
+    else:
+        collection._index.put_many([(r.id, r.vector) for r in records])
+    configure = getattr(loaded_store, "configure", None)
+    if callable(configure):
+        configure(collection._config())
+    return collection
+
+
+def _validate_snapshot_records(collection, records):
+    if not isinstance(records, list):
+        raise E.InvalidSnapshot("invalid snapshot records")
+    d = collection.dimensions
+    W = words_for(d)
+    # vectorized fast path for what the snapshot reader actually produces
+    # (homogeneous f32 ndarray rows, uint64 word rows): one bulk finite
+    # check instead of a million per-record validations. Anything unusual
+    # falls through to the per-record loop for the precise error.
+    if records and all(
+        isinstance(r, Embedding)
+        and ((isinstance(r.id, str) and r.id)
+             or (isinstance(r.value, str) and r.value))
+        and isinstance(r.vector, np.ndarray)
+        and r.vector.shape == (d,)
+        and r.vector.dtype == np.float32
+        and r.vectors is None
+        and (r.binary_vector is None or (
+            isinstance(r.binary_vector, np.ndarray)
+            and r.binary_vector.dtype == np.uint64
+            and r.binary_vector.shape == (W,)))
+        for r in records
+    ):
+        block = np.concatenate([r.vector for r in records]).reshape(-1, d)
+        if np.isfinite(block).all():
+            return
+    for r in records:
+        if not isinstance(r, Embedding):
+            raise E.InvalidSnapshotRecord("invalid_embedding")
+        try:
+            if not (isinstance(r.id, str) and r.id) and not (
+                isinstance(r.value, str) and r.value
+            ):
+                raise E.MissingId("missing id")
+            collection._validate_dims(r.vector)
+            if r.vectors is not None:
+                if (
+                    not isinstance(r.vectors, (list, tuple, np.ndarray))
+                    or len(r.vectors) == 0
+                ):
+                    raise E.InvalidMultiVector("invalid multi vector")
+                for v in r.vectors:
+                    collection._validate_dims(v)
+            if r.binary_vector is not None:
+                words = [int(w) for w in r.binary_vector]
+                if len(words) != words_for(collection.dimensions) or any(
+                    w < 0 or w > 2**64 - 1 for w in words
+                ):
+                    raise E.InvalidBinaryVector("invalid binary vector")
+        except E.VettoreError as exc:
+            raise E.InvalidSnapshotRecord(exc.reason) from exc

@@ -1,0 +1,88 @@
+"""Carries the JAX package's flat-search state across to this package.
+
+Every function here takes plain numpy arrays (``np.asarray`` of a JAX array
+gives one), so this module needs neither JAX nor ``ml_dtypes``: a bfloat16
+array is recognised by its dtype's name and widened bit for bit.
+
+* :func:`flat_device_state` — the operands of ``fused_flat_search`` (the
+  JAX ``FlatIndex``'s ``_device`` block and ``_device_scan`` tuple) as this
+  package's tensors;
+* :func:`flat_index_from_numpy` — a :class:`FlatIndex` rebuilt from a JAX
+  ``FlatIndex``'s host mirror with its slot layout unchanged.
+
+Snapshots need no conversion: both packages write and read the same file
+format (``store/snapshot.py``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .errors import DimensionMismatch, InvalidVector
+from .index.flat import FlatIndex, resolve_device, round_bf16
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16"
+
+
+def _as_f32(a) -> np.ndarray:
+    """float32 copy of ``a``; bfloat16 input widens exactly (its 16 bits are
+    the high half of the float32)."""
+    a = np.asarray(a)
+    if _is_bf16(a):
+        bits = a.view(np.uint16).astype(np.uint32) << np.uint32(16)
+        return bits.view(np.float32)
+    return np.array(a, dtype=np.float32)
+
+
+def flat_device_state(x, xsq, bias, lex_rank, *, device):
+    """``(x, xsq, bias, lex_rank)`` tensors on ``device`` for
+    ``ops.flat_scan.fused_flat_search``, from the JAX operands: ``x``
+    ``[N, d]`` f32 or bf16 (kept in its dtype), ``xsq`` and ``bias``
+    ``[N]`` or ``[N, 1]`` f32 (flattened), ``lex_rank`` ``[N]`` int32."""
+    dev = resolve_device(device)
+    x = np.asarray(x)
+    if _is_bf16(x):
+        x_t = torch.from_numpy(np.array(x).view(np.int16)).view(torch.bfloat16)
+    else:
+        x_t = torch.from_numpy(np.array(x, dtype=np.float32))
+    n = x_t.shape[0]
+    xsq_t = torch.from_numpy(_as_f32(xsq).reshape(-1))
+    bias_t = torch.from_numpy(_as_f32(bias).reshape(-1))
+    lex_t = torch.from_numpy(np.array(lex_rank, dtype=np.int32).reshape(-1))
+    for name, t in (("xsq", xsq_t), ("bias", bias_t), ("lex_rank", lex_t)):
+        if t.shape[0] != n:
+            raise DimensionMismatch(f"{name} has {t.shape[0]} rows, x has {n}")
+    return tuple(t.to(dev) for t in (x_t, xsq_t, bias_t, lex_t))  # fresh copies already
+
+
+def flat_index_from_numpy(metric, ids, host_x, valid, *, storage="f32", device="cuda"):
+    """A :class:`FlatIndex` holding a JAX ``FlatIndex``'s records in the same
+    slots: ``ids`` is its ``_ids`` list (``None`` for a free slot),
+    ``host_x`` its ``[cap, d]`` host mirror (f32 or bf16) and ``valid`` its
+    ``[cap]`` validity mask. Slot ``s`` of the result holds slot ``s`` of the
+    source, so slot numbers from either index mean the same record. Free
+    slots are refilled lowest first by later inserts."""
+    host = _as_f32(host_x)
+    valid = np.array(valid, dtype=bool).reshape(-1)
+    ids = list(ids)
+    if host.ndim != 2 or host.shape[0] != valid.shape[0] or len(ids) != valid.shape[0]:
+        raise InvalidVector("ids, host_x and valid must describe the same slots")
+    if any((id is not None) != bool(v) for id, v in zip(ids, valid)):
+        raise InvalidVector("ids and valid disagree on which slots are live")
+    index = FlatIndex(metric, storage=storage, device=device)
+    if not valid.any():
+        return index
+    host[~valid] = 0.0  # dead slots must rank exactly at their +inf bias
+    index._cap = host.shape[0]
+    index._dim = host.shape[1]
+    index._host_x = round_bf16(host) if storage == "bf16" else host
+    index._valid = valid
+    index._ids = ids
+    index._slot_of = {id: s for s, id in enumerate(ids) if id is not None}
+    if len(index._slot_of) != int(valid.sum()):
+        raise InvalidVector("duplicate ids in the slot table")
+    index._free = [int(s) for s in np.flatnonzero(~valid)[::-1]]
+    return index
