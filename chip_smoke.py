@@ -1,10 +1,10 @@
 """On-card smoke gate of the PyTorch port (``vettore_tpu_torch``).
 
-Drives the port's main path — exact flat search through ``Collection`` —
-on one CUDA card, builds the hand-written CUDA kernels from this checkout,
-holds every kernel against its plain PyTorch version at the main path's
-shapes, and checks search results against a float64 numpy oracle. Imports
-nothing of JAX.
+Drives the port's paths — exact flat search, and the funnel and quantized
+search modes, through ``Collection`` — on one CUDA card, builds the
+hand-written CUDA kernels from this checkout, holds every kernel against its
+plain PyTorch version at the main path's shapes, and checks search results
+against float64 numpy oracles. Imports nothing of JAX.
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -12,11 +12,22 @@ Phases (each prints one line; any failure exits non-zero):
 2. kernels: K1 ``gmin_scan`` and K2 ``rescore`` against their plain versions
    at N = 1,000,448, d = 768, B = 512 (cosine and l2, f32 and bf16), with
    median times of both;
+2b. adaptive kernels at the same N, d, B: K5 ``stage_gmin_scan`` (dims =
+   128; cosine and l2, f32 and bf16), K6 ``fused_sign_scan`` and K7
+   ``extract_group_rows`` (at the funnel's and the quantized mode's
+   shapes) against their plain versions, with median times of both;
 3. BASELINE config 1: 100k x 384 cosine f32, limit 10, 64 queries, against
    the oracle; single-query ``search`` equals ``search_batch``;
 4. headline scale: 1M x 768 cosine f32 clustered corpus, batch 512, limit 10:
    oracle parity on 32 queries, no host-oracle route, both kernel launch
    counts grown, bf16 storage overlap@10 >= 0.95, and times per batch;
+4b. BASELINE configs 3 and 4 on phase 4's collection (the scan cache shares
+   its block): quantized candidates=500 and funnel stages [128, 256, 384]
+   candidates=200, limit 10, batch 512, sync and device entry points;
+   oracle parity on 16 queries, no host route, the K5/K6/K7 launch counts
+   grown, times per batch, a ``torch.profiler`` trace of three batches of
+   each device path (device busy time, idle share, top kernels), overlap@10
+   against phase 4's exact results;
 5. snapshot: the phase-3 collection written and loaded back gives the same
    ids.
 
@@ -53,6 +64,13 @@ TIE_EPS = 1e-6
 SCORE_TOL = 1e-4
 K1_ATOL = {"f32": 1e-5, "bf16": 1e-4}
 K2_ATOL = 1e-5
+#: K5 group minima and ranks: as K1 (f32 summation order; bf16 products
+#: exact, accumulated in another order); K6 and K7 must be bit-equal
+K5_ATOL = K1_ATOL
+#: BASELINE.json configs 3 (quantized) and 4 (funnel)
+QUANT_C = 500
+FUNNEL_STAGES, FUNNEL_C = (128, 256, 384), 200
+N_ADAPTIVE_ORACLE = 16
 
 
 def log(msg: str) -> None:
@@ -144,6 +162,232 @@ def host_ms(torch, fn, reps=7):
     return float(np.median(times))
 
 
+def adaptive_kernels(torch, fs, select, x32, bias, q, card):
+    """Phase 2b: K5, K6 and K7 against their plain versions at the main
+    path's shapes. Returns (max abs errors by kernel, median ms of the main
+    configurations: K5 f32 cosine, K6, K7 at the quantized mode's shape)."""
+    dims = FUNNEL_STAGES[0]
+    errs = {"stage_gmin_scan": 0.0, "sign_scan": 0.0, "extract_group_rows": 0.0}
+    times = {}
+    for storage in ("f32", "bf16"):
+        x = x32 if storage == "f32" else x32.to(torch.bfloat16)
+        xsq = (x[:, :dims].float() ** 2).sum(dim=1)
+        for metric in ("cosine", "l2"):
+            gmin, rank, bounded = fs.stage_gmin_scan(x, xsq, bias, q, metric=metric, dims=dims)
+            refs = fs._stage_gmin_scan_ref(x, xsq, bias, q, metric=metric, dims=dims)
+            err = 0.0
+            for got, ref in zip((gmin, rank), refs):
+                fin = torch.isfinite(ref)
+                assert torch.equal(fin, torch.isfinite(got)), "K5 finiteness differs"
+                err = max(err, (got[fin] - ref[fin]).abs().max().item())
+            del refs
+            assert err <= K5_ATOL[storage], f"K5 {storage} {metric} err {err}"
+            assert bool(bounded), "unit-norm data must pass the overflow bound"
+            errs["stage_gmin_scan"] = max(errs["stage_gmin_scan"], err)
+            k5 = cuda_ms(torch, lambda: fs.stage_gmin_scan(x, xsq, bias, q, metric=metric,
+                                                           dims=dims))
+            k5_plain = cuda_ms(torch, lambda: fs._stage_gmin_scan_ref(x, xsq, bias, q,
+                                                                      metric=metric, dims=dims))
+            log(f"  K5 stage_gmin_scan {storage} {metric} dims={dims}: err {err:.3g} (atol "
+                f"{K5_ATOL[storage]}), {k5:.3f} ms vs plain {k5_plain:.3f} ms {card}")
+            if (storage, metric) == ("f32", "cosine"):
+                times["k5"], times["k5_plain"] = k5, k5_plain
+                funnel_gmin, funnel_rank = gmin, rank
+            del gmin, rank
+        del x
+    b, n = funnel_rank.shape
+    ng = n // fs.GROUP
+
+    def k7_case(mat, gmin, count, label):
+        _v, gidx, _ok = select.group_topk(gmin, count)
+        gidx = gidx.int()
+        out = fs.extract_group_rows(mat, gidx)
+        assert torch.equal(out, fs._extract_group_rows_ref(mat, gidx)), f"K7 {label} differs"
+        k7 = cuda_ms(torch, lambda: fs.extract_group_rows(mat, gidx))
+        k7_plain = cuda_ms(torch, lambda: fs._extract_group_rows_ref(mat, gidx))
+        log(f"  K7 extract_group_rows {label} [{b}, {gidx.shape[1]}, {fs.GROUP}] "
+            f"{mat.dtype}: bit-equal, {k7:.3f} ms vs plain {k7_plain:.3f} ms {card}")
+        return k7, k7_plain
+
+    k7_case(funnel_rank.view(b, ng, fs.GROUP), funnel_gmin, FUNNEL_C + fs.GROUP_SLACK,
+            "funnel")
+    del funnel_rank, funnel_gmin
+    signs = torch.where(x32 >= 0, 1, -1).to(torch.int8)
+    valid8 = (bias == 0).to(torch.int8)
+    qsigns = torch.where(q >= 0, 1, -1).to(torch.int8)
+    gmin6, ham16 = fs.fused_sign_scan(signs, valid8, qsigns, d=x32.shape[1])
+    ref_gmin, ref_ham = fs._fused_sign_scan_ref(signs, valid8, qsigns, d=x32.shape[1])
+    assert torch.equal(gmin6, ref_gmin) and torch.equal(ham16, ref_ham), "K6 differs"
+    del ref_gmin, ref_ham
+    times["k6"] = cuda_ms(torch, lambda: fs.fused_sign_scan(signs, valid8, qsigns,
+                                                            d=x32.shape[1]))
+    times["k6_plain"] = cuda_ms(torch, lambda: fs._fused_sign_scan_ref(signs, valid8, qsigns,
+                                                                       d=x32.shape[1]))
+    log(f"  K6 sign_scan d={x32.shape[1]}: bit-equal, {times['k6']:.3f} ms vs plain "
+        f"{times['k6_plain']:.3f} ms {card}")
+    times["k7"], times["k7_plain"] = k7_case(ham16.view(b, ng, fs.GROUP), gmin6, QUANT_C,
+                                             "quantized")
+    return errs, times
+
+
+def quantized_oracle(stored, q, count, limit):
+    """Config 3 in float64 numpy: Hamming on the packed sign bits, the
+    ``count`` best rows by (hamming, id), then the exact cosine top
+    ``limit + 4`` by (score desc, id). Rows are in id order. Returns
+    ``[(slots, scores)]``."""
+    bits = np.packbits(stored >= 0.0, axis=1, bitorder="little")
+    qbits = np.packbits(q >= 0.0, axis=1, bitorder="little")
+    if bits.shape[1] % 8 == 0 and hasattr(np, "bitwise_count"):  # numpy >= 2
+        words, qwords = bits.view(np.uint64), qbits.view(np.uint64)
+
+        def hamming(b):
+            return np.bitwise_count(words ^ qwords[b]).sum(axis=1, dtype=np.int64)
+    else:
+        table = np.array([bin(v).count("1") for v in range(256)], np.int64)
+
+        def hamming(b):
+            return table[bits ^ qbits[b]].sum(axis=1)
+    return [_cosine_top(stored, _smallest(hamming(b), count)[:count], q[b], limit)
+            for b in range(q.shape[0])]
+
+
+def _smallest(key, count):
+    """Row indices in (key, index) order, at least the ``count + 1`` first
+    (every row whose key ties the (count+1)-th is kept, so ties resolve by
+    index exactly)."""
+    kth = np.partition(key, count)[count]
+    cand = np.flatnonzero(key <= kth)
+    return cand[np.lexsort((cand, key[cand]))]
+
+
+def funnel_oracle(stored, q, dims, count, limit):
+    """Config 4 in float64 numpy: the ``count`` best rows by (prefix cosine
+    rank, id) over the first ``dims`` columns, then the exact cosine top
+    ``limit + 4``. Later stages keep all ``count`` candidates (they only
+    reorder), so the stage-1 set is the final rerank's input. Returns
+    ``([(slots, scores)], number of queries whose count-th and next ranks
+    lie within TIE_EPS)``."""
+    xp = stored[:, :dims].astype(np.float64)
+    qp = q[:, :dims].astype(np.float64)
+    sims = (xp @ qp.T) / (np.linalg.norm(xp, axis=1)[:, None] * np.linalg.norm(qp, axis=1))
+    rank = 1.0 - np.clip(sims, -1.0, 1.0)
+    out, near = [], 0
+    for b in range(q.shape[0]):
+        order = _smallest(rank[:, b], count)
+        near += int(rank[order[count], b] - rank[order[count - 1], b] < TIE_EPS)
+        out.append(_cosine_top(stored, order[:count], q[b], limit))
+    return out, near
+
+
+def _cosine_top(stored, cand, qv, limit):
+    rows = stored[cand].astype(np.float64)
+    q64 = qv.astype(np.float64)
+    sims = rows @ q64 / (np.linalg.norm(rows, axis=1) * np.linalg.norm(q64))
+    order = sorted(range(len(cand)), key=lambda i: (-sims[i], cand[i]))[: limit + 4]
+    return [int(cand[i]) for i in order], [float(sims[i]) for i in order]
+
+
+def adaptive_modes(torch, col, stored, queries, exact, card):
+    """Phase 4b: BASELINE configs 3 (quantized) and 4 (funnel) through
+    ``Collection`` at the headline scale; ``stored`` is the collection's
+    (normalised) corpus in id order. Returns the launch counts of the run
+    that drove both modes."""
+    from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.ops.distance import normalize_rows
+
+    prepared = normalize_rows(queries, "l2")
+    qdev = torch.from_numpy(prepared).to(col.device)
+    quant = dict(limit=10, candidates=QUANT_C)
+    funnel = dict(limit=10, candidates=FUNNEL_C, stages=list(FUNNEL_STAGES))
+    t1 = time.perf_counter()
+    cache = col._scan_cache()
+    assert cache._x[0] is col.index._device[0], "the scan cache did not share the index block"
+    cache.signs()
+    cache.stage_xsq(FUNNEL_STAGES[0])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t1
+    for name in fs.LAUNCHES:
+        fs.LAUNCHES[name] = 0
+    got_q = col.quantized_search_batch(queries, **quant)
+    got_f = col.funnel_search_batch(queries, **funnel)
+    dev_q = col.results_from_device(col.quantized_search_batch_device(qdev, **quant))
+    dev_f = col.results_from_device(col.funnel_search_batch_device(qdev, **funnel))
+    torch.cuda.synchronize()
+    launches = dict(fs.LAUNCHES)
+    for name in ("stage_gmin_scan", "sign_scan", "extract_group_rows"):
+        assert launches[name] > 0, f"{name} not launched: {launches}"
+    assert col.host_routes == 0, f"host routes: {col.host_routes}"
+
+    def ids(rows):
+        return [[r.id for r in row] for row in rows]
+
+    assert ids(dev_q) == ids(got_q) and ids(dev_f) == ids(got_f), "device path differs"
+    ids_all = [f"doc-{i:07d}" for i in range(stored.shape[0])]
+    m = N_ADAPTIVE_ORACLE
+    t1 = time.perf_counter()
+    want_q = quantized_oracle(stored, prepared[:m], QUANT_C, 10)
+    want_f, near = funnel_oracle(stored, prepared[:m], FUNNEL_STAGES[0], FUNNEL_C, 10)
+    oracle_s = time.perf_counter() - t1
+    swaps = {}
+    for mode, got_rows, want in (("quantized", got_q, want_q), ("funnel", got_f, want_f)):
+        swaps[mode] = sum(
+            check_hits([(r.id, r.score) for r in row], ([ids_all[s] for s in w[0]], w[1]), 10)
+            for row, w in zip(got_rows[:m], want))
+    ms = {
+        "quantized device": host_ms(torch, lambda: col.quantized_search_batch_device(
+            qdev, **quant)),
+        "funnel device": host_ms(torch, lambda: col.funnel_search_batch_device(qdev, **funnel)),
+        "quantized sync": host_ms(torch, lambda: col.quantized_search_batch(queries, **quant),
+                                  reps=3),
+        "funnel sync": host_ms(torch, lambda: col.funnel_search_batch(queries, **funnel),
+                               reps=3),
+    }
+    assert col.host_routes == 0
+    profile_runs(torch, {
+        "quantized device": lambda: col.quantized_search_batch_device(qdev, **quant),
+        "funnel device": lambda: col.funnel_search_batch_device(qdev, **funnel),
+    }, card)
+
+    def overlap(rows):
+        return float(np.mean([len({r.id for r in a} & {r.id for r in b}) / 10
+                              for a, b in zip(rows, exact)]))
+
+    log(f"  cache set-up (bits, signs, prefix norms) {setup_s:.1f}s; ms per batch of "
+        f"{len(queries)}: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" {card}")
+    log(f"  ids equal the f64 oracles on {m} queries (near-tie swaps: quantized "
+        f"{swaps['quantized']}, funnel {swaps['funnel']}; funnel stage-1 boundaries within "
+        f"{TIE_EPS}: {near}; oracles {oracle_s:.1f}s); host routes 0; overlap@10 against "
+        f"exact flat: quantized {overlap(got_q):.4f}, funnel {overlap(got_f):.4f}; "
+        f"launches {launches}")
+    return launches
+
+
+def profile_runs(torch, runs, card, reps=3):
+    """Traces ``reps`` calls of each run with ``torch.profiler`` and prints
+    device-busy and wall ms per call, the device's idle share, and the
+    kernels that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / reps
+        # device events only: an operator's row repeats its kernels' time
+        kernels = sorted((e for e in prof.key_averages() if e.device_type != DeviceType.CPU),
+                         key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+        top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / reps:.3f}"
+                        for e in kernels[:4])
+        log(f"  profile {label}: device busy {busy:.3f} ms per call, wall {wall:.3f} ms, "
+            f"idle {max(0.0, 1 - busy / wall):.1%}; top kernels (ms per call): {top} {card}")
+
+
 def main() -> int:
     import torch
 
@@ -225,10 +469,20 @@ def main() -> int:
                 f"{t['k1']:.3f} ms vs plain {t['k1_plain']:.3f} ms | K2 rescore: err "
                 f"{e2:.3g} (atol {K2_ATOL}), {t['k2']:.3f} ms vs plain {t['k2_plain']:.3f} ms "
                 f"{card}")
-    del x, x32, xsq, bias, q
+    del x
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"[phase 2] kernels match their plain versions at N={N_MAIN} d={D_MAIN} "
+        f"B={B_MAIN} ({time.perf_counter() - t0:.1f}s)")
+
+    # ---- phase 2b: the adaptive kernels against their plain versions ------
+    t0 = time.perf_counter()
+    adaptive_errs, adaptive_times = adaptive_kernels(torch, fs, select, x32, bias, q, card)
+    errs.update(adaptive_errs)
+    del x32, xsq, bias, q
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[phase 2b] K5/K6/K7 match their plain versions at N={N_MAIN} d={D_MAIN} "
         f"B={B_MAIN} ({time.perf_counter() - t0:.1f}s)")
 
     # ---- phase 3: BASELINE config 1 (100k x 384 cosine f32, limit 10) ----
@@ -275,7 +529,8 @@ def main() -> int:
     got = col.search_batch(queries, limit=10)  # first call uploads the block
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t1
-    truth = f64_oracle(normalize_rows(corpus, "l2"), ids, queries[:32], 10)
+    stored = normalize_rows(corpus, "l2")  # the bytes the collection stores
+    truth = f64_oracle(stored, ids, queries[:32], 10)
     swaps = sum(check_hits([(r.id, r.score) for r in row], want, 10)
                 for row, want in zip(got[:32], truth))
     assert col.index.host_routes == 0, f"host-oracle routes: {col.index.host_routes}"
@@ -290,7 +545,8 @@ def main() -> int:
     ms_sync = host_ms(torch, lambda: col.search_batch(queries, limit=10), reps=5)
     launches = dict(fs.LAUNCHES)
     assert col.index.host_routes == 0
-    assert all(v > 0 for v in launches.values()), f"kernels not launched: {launches}"
+    assert launches["gmin_scan"] > 0 and launches["rescore"] > 0, (
+        f"kernels not launched: {launches}")
     torch.cuda.synchronize()
     log(f"  ingest {ingest_s:.1f}s, first search_batch (upload + search) {first_s:.1f}s")
     log(f"  search_batch_device B={B_MAIN}: f32 {ms_f32:.3f} ms, bf16 {ms_bf16:.3f} ms; "
@@ -298,8 +554,16 @@ def main() -> int:
     log(f"[phase 4] {N_CORPUS}x{D_MAIN} cosine f32: ids equal the f64 oracle on 32 queries ({swaps} "
         f"near-tie swaps), host routes f32 0 / bf16 {view.host_routes}, bf16 overlap@10 "
         f"{overlap:.4f}, launches {launches} ({time.perf_counter() - t0:.1f}s)")
-    del view, col
+    del view
     torch.cuda.empty_cache()
+
+    # ---- phase 4b: BASELINE configs 3 and 4 on the same collection --------
+    t0 = time.perf_counter()
+    adaptive_launches = adaptive_modes(torch, col, stored, queries, got, card)
+    del stored
+    del col
+    torch.cuda.empty_cache()
+    log(f"[phase 4b] configs 3 and 4 ({time.perf_counter() - t0:.1f}s)")
 
     # ---- phase 5: snapshot round trip -------------------------------------
     t0 = time.perf_counter()
@@ -324,6 +588,13 @@ def main() -> int:
          "replaces": "vettore_tpu/ops/flat_scan.py:208", "launches": launches["rescore"],
          "max_abs_err": errs["rescore"], "ms": main_t["k2"], "plain_ms": main_t["k2_plain"]},
     ]
+    adaptive_source = "vettore_tpu_torch/csrc/adaptive_scan.cu"
+    for name, key, line in (("stage_gmin_scan", "k5", 380), ("sign_scan", "k6", 518),
+                            ("extract_group_rows", "k7", 789)):
+        kernels.append({"name": name, "route": "cuda", "source": adaptive_source,
+                        "replaces": f"vettore_tpu/ops/flat_scan.py:{line}",
+                        "launches": adaptive_launches[name], "max_abs_err": errs[name],
+                        "ms": adaptive_times[key], "plain_ms": adaptive_times[key + "_plain"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -119,7 +119,7 @@ def test_unported_features_raise():
         tvt.Collection(dimensions=4, mesh=object(), device="cpu")
     col = tvt.Collection(dimensions=4, device="cpu")
     with pytest.raises(errors.InvalidIndex, match="not ported"):
-        col.funnel_search([1.0, 0.0, 0.0, 0.0])
+        col.multi_vector_search([[1.0, 0.0, 0.0, 0.0]])
     with pytest.raises(errors.InvalidFlatOptions, match="not ported"):
         TFlat("cosine", storage="int8", device="cpu")
 

@@ -17,6 +17,7 @@ PORT_MODULES = (
     "vettore_tpu_torch.ops.distance",
     "vettore_tpu_torch.ops.flat_scan",
     "vettore_tpu_torch.ops.packing",
+    "vettore_tpu_torch.ops.pipeline",
     "vettore_tpu_torch.ops.scan_host",
     "vettore_tpu_torch.ops.select",
     "vettore_tpu_torch.ops.topk",

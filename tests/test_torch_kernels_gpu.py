@@ -107,3 +107,166 @@ def test_kernels_refuse_wrong_operands(cuda):
     with pytest.raises(TypeError, match="int32"):
         fs.rescore(x, xsq, bias, q, torch.zeros((8, 2), dtype=torch.int64, device=cuda),
                    metric="cosine")
+
+
+# ---------------------------------------------------------------------------
+# K5 stage_gmin_scan, K6 fused_sign_scan, K7 extract_group_rows and the
+# adaptive pipelines. Ragged on purpose: query counts off the 128-query tile,
+# prefix widths off the 32-element d-chunk, and sign widths off 4 bytes.
+# Tolerances: K5 group minima and ranks f32 atol 1e-5, bf16 atol 1e-4; K6
+# and K7 bit-equal; pipelines the same slots and raws within 1e-5.
+# ---------------------------------------------------------------------------
+
+STAGE_SHAPES = ((4096, 96, 70, 33), (2048, 160, 130, 128))  # (n, d, b, dims)
+SIGN_SHAPES = ((4096, 128, 70), (2048, 77, 130), (1024, 6, 3))  # (n, d, b)
+
+
+def _signs(n, d, b, device, seed=0):
+    rng = np.random.default_rng(seed)
+    signs = torch.from_numpy((rng.integers(0, 2, (n, d)) * 2 - 1).astype(np.int8))
+    qsigns = torch.from_numpy((rng.integers(0, 2, (b, d)) * 2 - 1).astype(np.int8))
+    valid8 = torch.ones(n, dtype=torch.int8)
+    valid8[rng.choice(n, 7, replace=False)] = 0
+    return signs.to(device), valid8.to(device), qsigns.to(device)
+
+
+@pytest.mark.parametrize("shape", STAGE_SHAPES)
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", fs.FUSED_METRICS)
+def test_stage_gmin_scan_kernel_matches_plain(cuda, metric, storage, shape):
+    n, d, b, dims = shape
+    x, _xsq, bias, q = _operands(n, d, b, storage, cuda, seed=4)
+    xsq = (x[:, :dims].float() ** 2).sum(dim=1)
+    before = fs.LAUNCHES["stage_gmin_scan"]
+    gmin, rank, bounded = fs.stage_gmin_scan(x, xsq, bias, q, metric=metric, dims=dims)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["stage_gmin_scan"] == before + 1
+    assert bool(bounded)
+    want_gmin, want_rank = fs._stage_gmin_scan_ref(x, xsq, bias, q, metric=metric, dims=dims)
+    _assert_close_with_inf(gmin, want_gmin, GMIN_ATOL[storage])
+    _assert_close_with_inf(rank, want_rank, GMIN_ATOL[storage])
+
+
+@pytest.mark.parametrize("shape", SIGN_SHAPES)
+def test_sign_scan_kernel_matches_plain(cuda, shape):
+    n, d, b = shape
+    signs, valid8, qsigns = _signs(n, d, b, cuda)
+    before = fs.LAUNCHES["sign_scan"]
+    gmin, ham16 = fs.fused_sign_scan(signs, valid8, qsigns, d=d)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["sign_scan"] == before + 1
+    want_gmin, want_ham = fs._fused_sign_scan_ref(signs, valid8, qsigns, d=d)
+    assert gmin.dtype == torch.int32 and ham16.dtype == torch.int16
+    assert torch.equal(gmin, want_gmin)
+    assert torch.equal(ham16, want_ham)
+
+
+def test_sign_scan_kernel_reads_unaligned_rows(cuda):
+    # a block starting one row into a larger one: the rows are not 4-byte
+    # aligned, so the kernel takes its byte-wise load path
+    signs, valid8, qsigns = _signs(1088, 128, 5, cuda, seed=3)
+    off = signs.flatten()[1:1 + 1024 * 127].view(1024, 127)
+    assert off.data_ptr() % 4
+    gmin, ham16 = fs.fused_sign_scan(off, valid8[:1024], qsigns[:, :127].contiguous(), d=127)
+    want_gmin, want_ham = fs._fused_sign_scan_ref(off, valid8[:1024],
+                                                  qsigns[:, :127].contiguous(), d=127)
+    assert torch.equal(gmin, want_gmin) and torch.equal(ham16, want_ham)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("c", [1, 65, 500])
+def test_extract_group_rows_kernel_matches_plain(cuda, dtype, c):
+    rng = np.random.default_rng(c)
+    b, rows = 37, 300
+    mat = torch.from_numpy(rng.integers(-30000, 30000, (b, rows, 64))).to(dtype).to(cuda)
+    gidx = torch.from_numpy(rng.integers(0, rows, (b, c)).astype(np.int32)).to(cuda)
+    gidx[0, 0] = rows + 5  # out of range: clamped by both versions
+    gidx[-1, -1] = -3
+    before = fs.LAUNCHES["extract_group_rows"]
+    out = fs.extract_group_rows(mat, gidx)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["extract_group_rows"] == before + 1
+    assert torch.equal(out, fs._extract_group_rows_ref(mat, gidx))
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", ["cosine", "l2", "inner_product"])
+def test_fused_stage_candidates_on_card_matches_cpu(cuda, metric, storage):
+    x, _xsq, bias, q = _operands(4096, 256, 40, storage, cuda, seed=5)
+    xsq = (x[:, :128].float() ** 2).sum(dim=1)
+    got = fs.fused_stage_candidates(x, xsq, bias, q, metric=metric, count=50, dims=128)
+    want = fs.fused_stage_candidates(x.cpu(), xsq.cpu(), bias.cpu(), q.cpu(), metric=metric,
+                                     count=50, dims=128)
+    assert bool(got[2].all()) and bool(want[2].all())
+    assert torch.equal(got[0].cpu(), want[0])
+
+
+def _pipeline_state(device, n=8192, d=128, seed=6):
+    from vettore_tpu_torch.ops import pipeline as pipe
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x[-9:] = 0.0
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[-9:] = False
+    xt = torch.from_numpy(x)
+    signs = torch.where(xt >= 0, 1, -1).to(torch.int8)
+    q = torch.from_numpy(x[rng.integers(0, n - 9, 24)]
+                         + 0.2 * rng.normal(size=(24, d)).astype(np.float32))
+    return pipe, tuple(t.to(device) for t in (xt, valid, signs, q))
+
+
+@pytest.mark.parametrize("d", [128, 100])
+@pytest.mark.parametrize("mode", ["funnel", "quantized"])
+def test_pipelines_on_card_match_cpu(cuda, monkeypatch, mode, d):
+    # d = 100: a stage-1 prefix of 64 columns and a sign row of 100 bytes,
+    # both off the TPU's 128-lane tile, still run K5 and K6
+    pipe, state = _pipeline_state(cuda, d=d)
+    monkeypatch.setattr(pipe, "_FUSED_STAGE_MIN", 2048)
+    monkeypatch.setattr(pipe, "_GROUP_COVER_MIN", 2048)
+    dims = 128 if d == 128 else 64
+
+    def run(x, valid, signs, q):
+        if mode == "funnel":
+            xsq = (x[:, :dims].float() ** 2).sum(dim=1)
+            return pipe.funnel_pipeline_batch(x, valid, q, xsq, metric="cosine",
+                                              stages=(dims, d), count=60, limit=10)
+        return pipe.quantized_pipeline_batch(x, signs, valid, q, metric="cosine", count=100,
+                                             limit=10, d=d)
+
+    before = dict(fs.LAUNCHES)
+    got = run(*state)
+    torch.cuda.synchronize()
+    grew = [k for k in fs.LAUNCHES if fs.LAUNCHES[k] > before[k]]
+    assert grew == (["stage_gmin_scan", "extract_group_rows"] if mode == "funnel"
+                    else ["sign_scan", "extract_group_rows"])
+    want = run(*(t.cpu() for t in state))
+    assert bool(got[3].all()) and bool(want[3].all())
+    assert torch.equal(got[0].cpu(), want[0])
+    assert (got[1].cpu() - want[1]).abs().max().item() <= 1e-5
+
+
+def test_adaptive_kernels_refuse_wrong_operands(cuda):
+    x, xsq, bias, q = _operands(1024, 256, 8, "f32", cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.stage_gmin_scan(x.t().contiguous().t(), xsq, bias, q, metric="cosine", dims=128)
+    with pytest.raises(ValueError, match="dims"):
+        fs.stage_gmin_scan(x, xsq, bias, q, metric="cosine", dims=300)
+    with pytest.raises(ValueError, match="metric"):
+        fs.stage_gmin_scan(x, xsq, bias, q, metric="manhattan", dims=128)
+    signs, valid8, qsigns = _signs(1024, 128, 4, cuda)
+    with pytest.raises(TypeError, match="int8"):
+        fs.fused_sign_scan(signs.float(), valid8, qsigns, d=128)
+    with pytest.raises(ValueError, match="columns"):
+        fs.fused_sign_scan(signs, valid8, qsigns, d=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.fused_sign_scan(signs.t().contiguous().t(), valid8, qsigns, d=128)
+    mat = torch.zeros((4, 16, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        fs.extract_group_rows(mat, torch.zeros((4, 2), dtype=torch.int64, device=cuda))
+    with pytest.raises(TypeError, match="float32 or int16"):
+        fs.extract_group_rows(mat.double(), torch.zeros((4, 2), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="16 bytes"):
+        fs.extract_group_rows(mat[:, :, :3].contiguous(),
+                              torch.zeros((4, 2), dtype=torch.int32, device=cuda))

@@ -103,3 +103,86 @@ def test_topk_exact_matches_jax():
 @pytest.mark.parametrize("limit,n", [(10, 1000), (10, 12), (16, 16), (17, 1 << 20), (1, 5), (0, 3)])
 def test_bucket_limit_matches_jax(limit, n):
     assert ttopk.bucket_limit(limit, n) == jtopk.bucket_limit(limit, n)
+
+
+# ---------------------------------------------------------------------------
+# integer keys and the exact top-C selections of the adaptive pipelines
+# ---------------------------------------------------------------------------
+
+
+def test_group_topk_int32_pad_matches_jax():
+    # [3, 2052] int32 keys: 2052 % 8 = 4 and 2052 > 2048, so the +inf pad
+    # runs. JAX pads int32 with 2**31 - 1; torch cannot pad an int tensor
+    # with float("inf"), so the port pads with the dtype's maximum.
+    rng = np.random.default_rng(11)
+    g = rng.permutation(3 * 2052 * 4)[: 3 * 2052].reshape(3, 2052).astype(np.int32)
+    g[:, -40:] = 2**31 - 1  # invalid composite keys at the tail
+    want_v, want_i, want_ok = (np.asarray(a) for a in
+                               jselect.group_topk(jnp.asarray(g), 24, check_c=16))
+    got_v, got_i, got_ok = (a.numpy() for a in
+                            tselect.group_topk(torch.from_numpy(g), 24, check_c=16))
+    assert got_v.dtype == np.int32
+    np.testing.assert_array_equal(got_v, want_v)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_ok, want_ok)
+
+
+def _nine_pattern_keys(b, n, seed, d=32):
+    """Hamming-like keys with mass ties: every row is one of nine sign
+    patterns (as tests/test_fallback_paths.py builds them)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 2, (9, d)) * 2 - 1
+    signs = base[rng.integers(0, 9, n)]
+    q = rng.integers(0, 2, (b, d)) * 2 - 1
+    return ((d - q @ signs.T) // 2).astype(np.float32), rng
+
+
+@pytest.mark.parametrize("n,c", [(8192, 100), (8192, 600), (300, 24), (50, 80)])
+def test_exact_top_c_mass_ties_match_jax(n, c):
+    key, rng = _nine_pattern_keys(3, n, seed=n + c)
+    key[:, rng.choice(n, n // 10, replace=False)] = np.inf  # invalid rows
+    lex_rank = rng.permutation(n).astype(np.int32)
+    for lex in (None, lex_rank):
+        want = [np.asarray(a) for a in jselect.exact_top_c(
+            jnp.asarray(key), None if lex is None else jnp.asarray(lex), c=c)]
+        got = [a.numpy() for a in tselect.exact_top_c(
+            torch.from_numpy(key), None if lex is None else torch.from_numpy(lex), c=c)]
+        np.testing.assert_array_equal(got[2], want[2])
+        ok = want[2]
+        np.testing.assert_array_equal(got[0][ok], want[0][ok])
+        np.testing.assert_array_equal(got[1][ok], want[1][ok])
+
+
+@pytest.mark.parametrize("c", [24, 200])
+def test_exact_top_c_slots_mass_ties_match_jax(c):
+    key, rng = _nine_pattern_keys(3, 4096, seed=c)
+    # a gathered sub-block: positions are not slots, slots ascend with lex
+    slots = np.sort(rng.choice(1 << 20, 4096, replace=False)).astype(np.int32)
+    slots = np.broadcast_to(slots, key.shape).copy()
+    key[:, -64:] = np.inf
+    slots[:, -64:] = -1
+    want = [np.asarray(a) for a in jselect.exact_top_c_slots(jnp.asarray(key),
+                                                             jnp.asarray(slots), c=c)]
+    got = [a.numpy() for a in tselect.exact_top_c_slots(torch.from_numpy(key),
+                                                        torch.from_numpy(slots), c=c)]
+    np.testing.assert_array_equal(got[2], want[2])
+    ok = want[2]
+    np.testing.assert_array_equal(got[0][ok], want[0][ok])
+    np.testing.assert_array_equal(got[1][ok], want[1][ok])
+
+
+@pytest.mark.parametrize("n,c", [(8192, 100), (65536, 500), (300, 24), (50, 80)])
+def test_exact_top_c_unique_int_mass_ties_match_jax(n, c):
+    ham, rng = _nine_pattern_keys(3, n, seed=n)
+    slot_bits = max(1, (n - 1).bit_length())
+    comp = (ham.astype(np.int32) << slot_bits) | np.arange(n, dtype=np.int32)[None, :]
+    comp[:, rng.choice(n, n // 10, replace=False)] = 2**31 - 1
+    want_s, want_k = (np.asarray(a) for a in
+                      jselect.exact_top_c_unique_int(jnp.asarray(comp), c=c))
+    got_s, got_k = (a.numpy() for a in
+                    tselect.exact_top_c_unique_int(torch.from_numpy(comp), c=c))
+    np.testing.assert_array_equal(got_s, want_s)
+    np.testing.assert_array_equal(got_k, want_k)
+    # ascending (hamming, slot): the composite order itself
+    live = got_k < 2**31 - 1
+    assert (np.diff(got_k.astype(np.int64), axis=1)[live[:, 1:]] > 0).all()

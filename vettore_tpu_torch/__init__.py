@@ -1,10 +1,10 @@
-"""vettore-tpu on PyTorch and CUDA: exact flat vector search on an NVIDIA GPU.
+"""vettore-tpu on PyTorch and CUDA: vector search on an NVIDIA GPU.
 
 The port of the JAX package ``vettore_tpu`` (which stays the reference) to
-PyTorch, with hand-written CUDA kernels for the scan. It has the same public
-API for the slice ported so far — ``Collection`` with the exact flat index,
-f32 and bf16 storage, snapshots — and returns the same results, including
-the ``(rank, id)`` tie order. The device is explicit: ``device="cuda"`` (the
+PyTorch, with hand-written CUDA kernels for the scans. It has the same public
+API for the slices ported so far — ``Collection`` with the exact flat index,
+f32 and bf16 storage, the funnel and quantized search modes, snapshots — and
+returns the same results, including the ``(rank, id)`` tie order. The device is explicit: ``device="cuda"`` (the
 default) needs a CUDA device; pass ``device="cpu"`` to run on the CPU.
 
 Quick start::
@@ -18,6 +18,7 @@ Quick start::
         {"id": "north", "vector": [0.0, 1.0, 0.0]},
     ])
     results = col.search([1.0, 0.0, 0.0], limit=2)
+    funnel = col.funnel_search([1.0, 0.0, 0.0], stages=[2, 3], limit=1)
 """
 
 from . import errors, observability

@@ -1,11 +1,14 @@
 """First-use build and ctypes binding of the hand-written CUDA kernels.
 
-``load()`` compiles ``csrc/flat_scan.cu`` with ``nvcc`` for ``sm_90a`` into
-``_build/<source hash>/libvettore_flat.so`` beside this file (git-ignored),
-once per source version, and returns the loaded library with its argument
-types set. Nothing here runs at import time: the build happens only when a
-CUDA tensor first reaches a kernel wrapper, so the package imports on a
-machine without ``nvcc``.
+``load()`` compiles every ``csrc/*.cu`` with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source started together, and links the objects into
+``_build/<sources hash>/libvettore_kernels.so`` beside this file
+(git-ignored), once per version of the sources, then returns the loaded
+library with its argument types set. The hash covers every source's name
+and bytes and the compiler flags, so editing any kernel source rebuilds.
+Nothing here runs at import time: the build happens only when a CUDA tensor
+first reaches a kernel wrapper, so the package imports on a machine without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -16,14 +19,15 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flat_scan.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-LIB_NAME = "libvettore_flat.so"
+LIB_NAME = "libvettore_kernels.so"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -40,40 +44,69 @@ def _nvcc() -> str:
     return found
 
 
-def build_dir() -> Path:
-    """Build directory keyed by a hash of the kernel source."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_ROOT / digest
+def sources(csrc: Path = CSRC) -> list:
+    """The kernel sources, in a fixed order."""
+    return sorted(csrc.glob("*.cu"))
+
+
+def build_dir(csrc: Path = CSRC) -> Path:
+    """Build directory keyed by a hash of every kernel source and the flags."""
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for src in sources(csrc):
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _run(cmd: list) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True, check=False)
 
 
 def build() -> Path:
-    """Compiles the kernel library unless this source version is built;
-    returns its path. ``build.log`` beside it keeps nvcc's output (ptxas
-    register and shared-memory usage). Raises with nvcc's stderr on
+    """Compiles the kernel library unless this version of the sources is
+    built; returns its path. ``build.log`` beside it keeps nvcc's output
+    (ptxas register and shared-memory usage). Raises with nvcc's stderr on
     failure."""
     out_dir = build_dir()
     lib_path = out_dir / LIB_NAME
     if lib_path.is_file():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc, tag, srcs = _nvcc(), f"{os.getpid()}.tmp", sources()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    # one nvcc per source, all at once: the build takes as long as its
+    # slowest source however many kernels are added
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        steps = list(pool.map(_run, ([nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                                     for src, obj in zip(srcs, objs))))
+    if not any(p.returncode for p in steps):
+        steps.append(_run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text(
+        "\n".join(" ".join(p.args) + "\n" + p.stdout + p.stderr for p in steps))
+    failed = [p for p in steps if p.returncode]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building {SOURCE.name}:\n{proc.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(p.args)} (exit {p.returncode}):\n{p.stderr}" for p in failed))
     os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
     return lib_path
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vt_gmin_scan.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
-    lib.vt_gmin_scan.restype = i
-    lib.vt_rescore.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.vt_rescore.restype = i
+    signatures = {
+        "vt_gmin_scan": [p, i, p, p, p, p, p, i, i, i, i, p],
+        "vt_rescore": [p, i, p, p, p, p, p, p, i, i, i, i, i, p],
+        "vt_stage_gmin_scan": [p, i, p, p, p, p, p, p, i, i, i, i, i, p],
+        "vt_sign_scan": [p, p, p, p, p, i, i, i, p],
+        "vt_extract_group_rows": [p, p, p, i, i, i, i, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
     lib.vt_error_string.argtypes = [i]
     lib.vt_error_string.restype = ctypes.c_char_p
     return lib

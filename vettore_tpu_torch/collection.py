@@ -1,14 +1,18 @@
-"""Collection orchestration: validation, insert pipeline, flat search,
+"""Collection orchestration: validation, insert pipeline, search modes,
 snapshot/restore.
 
-The port of ``vettore_tpu/collection.py`` for the exact flat search slice:
-the canonical record store lives on host, the flat index's vector block lives
-on the collection's device and is always rebuildable from the store.
+The port of ``vettore_tpu/collection.py`` for the slices ported so far: the
+canonical record store lives on host; acceleration state (the flat index's
+vector block, the adaptive scan cache) lives on the collection's device and
+is always rebuildable from the store. Search modes:
+
+* ``search``           — exact flat scan
+* ``funnel_search``    — Matryoshka prefix staging + exact rerank
+* ``quantized_search`` — sign-bit Hamming candidates + exact rerank
 
 Not ported yet: the HNSW and IVF indexes, mesh sharding, ``compressed=True``
-(it needs the columnar store), and the funnel, quantized, multi-vector and
-hybrid search modes. Asking for any of them raises with a message that says
-so.
+(it needs the columnar store), and the multi-vector and hybrid search modes.
+Asking for any of them raises with a message that says so.
 
 Option validation is strict (unknown/duplicate options rejected,
 collection.ex:1116-1157); score/distance semantics follow
@@ -17,6 +21,7 @@ collection.ex:1116-1157); score/distance semantics follow
 
 from __future__ import annotations
 
+import math
 import threading
 from typing import Iterable
 
@@ -36,8 +41,10 @@ from .metrics import (
     result_values,
 )
 from .observability import StatsRegistry, observed
+from .ops import flat_scan, scan_host
+from .ops import pipeline as pipe
 from .ops.distance import NORMALIZATIONS, normalize_rows, validate_vector
-from .ops.packing import pack_signs_u64_rows, words_for
+from .ops.packing import pack_signs_u32, pack_signs_u64_rows, words_for
 from .store.base import Store, valid_store
 from .store.memory import MemoryStore
 
@@ -47,12 +54,6 @@ _SCORE_MODES = ("raw", "similarity")
 #: search modes of the JAX package that this package does not have yet
 _NOT_PORTED_MODES = (
     "put_tokens",
-    "funnel_search",
-    "funnel_search_batch",
-    "funnel_search_batch_device",
-    "quantized_search",
-    "quantized_search_batch",
-    "quantized_search_batch_device",
     "multi_vector_search",
     "multi_vector_search_batch",
     "hybrid_search",
@@ -73,6 +74,201 @@ def _reject_extra(extra: dict):
 def _reject_mesh(mesh):
     if mesh is not None:
         raise E.InvalidIndex("mesh sharding is not ported yet")
+
+
+def _validate_candidates(candidates, limit):
+    if (
+        not isinstance(candidates, int)
+        or isinstance(candidates, bool)
+        or candidates < limit
+        or candidates <= 0
+        or candidates > MAX_USIZE
+    ):
+        raise E.InvalidCandidates(f"invalid candidates: {candidates!r}")
+
+
+def _default_candidates(candidates, limit):
+    """``candidates`` validated, defaulting to ``10 * limit``."""
+    if candidates is None:
+        candidates = max(limit * 10, limit)
+    _validate_candidates(candidates, limit)
+    return candidates
+
+
+_ROW_TILE = 1024
+
+
+def _cap_at_least(n: int, floor: int = 8) -> int:
+    """Scan-cache capacity: pow2 below one row tile, then the next tile
+    multiple — <0.1% padded rows instead of up to 100% (the reference scans
+    exactly n records, collection.ex:699-713). Equal to the flat index's
+    capacity for the same count, so the cache can share its block."""
+    if n <= _ROW_TILE:
+        return max(floor, 1 << max(0, math.ceil(math.log2(max(n, 1)))))
+    return -(-n // _ROW_TILE) * _ROW_TILE
+
+
+def _prefix_xsq(x, *, dims):
+    sub = x[:, :dims].float()
+    return (sub * sub).sum(dim=1)
+
+
+class _VectorCache:
+    """Device-resident mirror of all stored primary vectors for the adaptive
+    scans (funnel / quantized). Rebuilt from the canonical store whenever
+    the collection mutates — the same canonical-vs-acceleration split the
+    reference keeps between ETS and native resources.
+
+    Records are held in LEXICOGRAPHIC id order, so slot order == id order:
+    a stable selection resolves equal-rank ties to the smallest id with no
+    per-query gather through a lex permutation."""
+
+    def __init__(self, records, dimensions, device):
+        self.n = len(records)
+        ids = []
+        seen = set()
+        for r in records:
+            if not isinstance(r, Embedding) or not isinstance(r.id, str) or r.id == "":
+                raise E.InvalidEmbedding("invalid embedding in store")
+            if r.id in seen:
+                raise E.DuplicateId(f"duplicate id: {r.id!r}")
+            seen.add(r.id)
+            ids.append(r.id)
+        order = np.argsort(np.array(ids, dtype=str), kind="stable") if ids else []
+        self.records = [records[i] for i in order]
+        self.ids = [ids[i] for i in order]
+        self.by_id = {id: r for id, r in zip(self.ids, self.records)}
+        self.cap = _cap_at_least(self.n)
+        self.dimensions = dimensions
+        self.device = device
+        self._x = None
+        self._valid = None
+        self._host_mat = None
+        self._signs = None
+        self._stage_xsq = {}
+
+    def _put(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.device)
+
+    def _stack_vectors(self) -> np.ndarray:
+        """One [n, d] f32 matrix of all primary vectors, validated in bulk —
+        the rebuild must be O(n) numpy work, not O(n) Python (a fresh cache is
+        paid on the first adaptive scan after any mutation)."""
+        if self._host_mat is not None:
+            return self._host_mat
+        rows = [r.vector for r in self.records]
+        if any(v is None for v in rows):
+            raise E.InvalidVector("embedding has no vector")
+        d = self.dimensions
+        if all(isinstance(v, np.ndarray) and v.shape == (d,) for v in rows):
+            block = np.concatenate(rows, dtype=np.float32).reshape(self.n, d)
+        else:
+            try:
+                block = np.asarray(rows, dtype=np.float32)
+            except (TypeError, ValueError):
+                block = None
+        if block is None or block.ndim != 2 or block.shape[1] != self.dimensions:
+            # ragged / wrong-width / non-numeric: re-walk for the precise error
+            for v in rows:
+                if len(v) != self.dimensions:
+                    raise E.DimensionMismatch("dimension mismatch")
+                np.asarray(v, dtype=np.float32)
+            raise E.InvalidVector("vector must be numeric")
+        with np.errstate(invalid="ignore"):
+            if not np.isfinite(block).all():
+                raise E.InvalidVector("vector contains a non-finite value")
+        self._host_mat = block
+        return block
+
+    def valid_mask(self) -> torch.Tensor:
+        """Device [cap] bool marking live slots (the cache is lex-packed, so
+        this is just ``slot < n``)."""
+        if self._x is not None:
+            return self._x[1]
+        if self._valid is None:
+            self._valid = self._put(np.arange(self.cap) < self.n)
+        return self._valid
+
+    def vectors(self):
+        """``(x [cap, d] f32, valid [cap] bool)`` on the device; records are
+        lex-sorted, so slot order IS id order."""
+        if self._x is not None:
+            return self._x
+        mat = np.zeros((self.cap, self.dimensions), dtype=np.float32)
+        if self.n:
+            mat[: self.n] = self._stack_vectors()
+        self._x = (self._put(mat), self.valid_mask())
+        return self._x
+
+    def bits(self) -> torch.Tensor:
+        """Packed sign bits per record, ``[cap, 2 * words_for(d)]`` uint32
+        words held in int64 on the host: stored ``binary_vector`` words when present
+        (validated), else packed from the primary vector
+        (collection.ex:730-740). When no record stores words and every vector
+        is float32, the bits pack from the f32 block itself (the sign test
+        ``>= 0.0`` reads the same bits as the reference's f64 copy)."""
+        expected_words = words_for(self.dimensions)
+        width = 2 * expected_words
+        out = np.zeros((self.cap, width), dtype=np.uint32)
+        with_bv = [i for i, r in enumerate(self.records) if r.binary_vector is not None]
+        without = [i for i, r in enumerate(self.records) if r.binary_vector is None]
+        if with_bv:
+            bvs = [self.records[i].binary_vector for i in with_bv]
+            if all(isinstance(bv, np.ndarray) and bv.dtype == np.uint64
+                   and bv.shape == (expected_words,) for bv in bvs):
+                words = np.concatenate(bvs).reshape(len(bvs), expected_words)
+            else:
+                for bv in bvs:
+                    # signed numpy arrays would WRAP under a uint64 cast (only
+                    # Python ints raise OverflowError on negatives)
+                    if isinstance(bv, np.ndarray) and bv.dtype.kind in "if" and (bv < 0).any():
+                        raise E.InvalidBinaryVector("invalid binary vector")
+                try:
+                    words = np.asarray(bvs, dtype=np.uint64)
+                except (TypeError, ValueError, OverflowError) as exc:
+                    raise E.InvalidBinaryVector("invalid binary vector") from exc
+            if words.ndim != 2 or words.shape[1] != expected_words:
+                raise E.InvalidBinaryVector("invalid binary vector")
+            rem = self.dimensions % 64
+            if rem:
+                words[:, -1] &= np.uint64((1 << rem) - 1)
+            block = np.empty((len(with_bv), width), dtype=np.uint32)
+            block[:, 0::2] = (words & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            block[:, 1::2] = (words >> np.uint64(32)).astype(np.uint32)
+            out[with_bv] = block
+        if without:
+            if not with_bv and all(isinstance(r.vector, np.ndarray)
+                                   and r.vector.dtype == np.float32 for r in self.records):
+                out[: self.n] = pack_signs_u32(self._stack_vectors())
+            else:
+                for i in without:
+                    v = self.records[i].vector
+                    if v is None or len(v) != self.dimensions:
+                        raise E.DimensionMismatch("dimension mismatch")
+                sub = np.asarray([self.records[i].vector for i in without], dtype=np.float64)
+                if not np.isfinite(sub).all():
+                    raise E.InvalidVector("vector contains a non-finite value")
+                out[without] = pack_signs_u32(sub)
+        # int64, not uint32: torch has no shifts for uint32
+        return torch.from_numpy(out.astype(np.int64))
+
+    def signs(self) -> torch.Tensor:
+        """Device ±1 int8 sign block [cap, d] for the Hamming scan, expanded
+        on the device from a transient device copy of the packed words (only
+        the block stays resident)."""
+        if self._signs is None:
+            self._signs = pipe.signs_from_bits(self.bits().to(self.device), d=self.dimensions)
+        return self._signs
+
+    def stage_xsq(self, dims: int) -> torch.Tensor:
+        """Device [cap] f32 squared norms over the first ``dims`` columns —
+        K5's renormalisation input, computed once per (stage, cache
+        version). Pad rows are zero (cosine denom 0 -> sim 0; the +inf bias
+        already masks them)."""
+        if dims not in self._stage_xsq:
+            x, _valid = self.vectors()
+            self._stage_xsq[dims] = _prefix_xsq(x, dims=dims)
+        return self._stage_xsq[dims]
 
 
 class Collection:
@@ -133,6 +329,10 @@ class Collection:
         self._store = self._make_store(store, self._config())
         self._write_lock = threading.RLock()
         self._version = 0
+        self._cache = None
+        self._cache_version = -1
+        #: queries the adaptive modes answered on the host oracle (ok False)
+        self.host_routes = 0
 
     # ------------------------------------------------------------------
     # construction helpers
@@ -540,27 +740,238 @@ class Collection:
         """Batched index search: one device dispatch for a query batch."""
         _reject_extra(extra)
         _validate_limit(limit)
-        self.ensure_open()
-        if len(queries):
-            try:
-                qs = np.asarray(queries, dtype=np.float64)
-            except (TypeError, ValueError) as exc:
-                raise E.InvalidVector("queries must be numeric") from exc
-            if qs.ndim != 2:
-                raise E.InvalidVector("queries must be a [batch, dims] matrix")
-            if qs.shape[1] != self.dimensions:
-                raise E.DimensionMismatch("dimension mismatch")
-            if not np.isfinite(qs).all() or (np.abs(qs) > F32_MAX).any():
-                raise E.InvalidVector("vector contains a non-finite value")
-            prepared = normalize_rows(qs, self.normalize)
-        else:
-            prepared = np.zeros((0, self.dimensions), np.float32)
+        prepared = self._prepare_query_batch(queries)
         batch = getattr(self._index, "search_batch", None)
         if callable(batch):
             all_hits = batch(prepared, limit)
         else:
             all_hits = [self._index.search(q, limit) for q in prepared]
         return [self._hydrate_hits(hits) for hits in all_hits]
+
+    # ------------------------------------------------------------------
+    # adaptive modes: funnel and quantized (collection.ex:244-295,660-713)
+    # ------------------------------------------------------------------
+
+    def _prepare_query_batch(self, queries) -> np.ndarray:
+        self.ensure_open()
+        if not len(queries):
+            return np.zeros((0, self.dimensions), np.float32)
+        try:
+            qs = np.asarray(queries, dtype=np.float64)
+        except (TypeError, ValueError) as exc:
+            raise E.InvalidVector("queries must be numeric") from exc
+        if qs.ndim != 2:
+            raise E.InvalidVector("queries must be a [batch, dims] matrix")
+        if qs.shape[1] != self.dimensions:
+            raise E.DimensionMismatch("dimension mismatch")
+        if qs.size and (not np.isfinite(qs).all() or (np.abs(qs) > F32_MAX).any()):
+            raise E.InvalidVector("vector contains a non-finite value")
+        return normalize_rows(qs, self.normalize) if qs.size else qs
+
+    def _query_tensor(self, prepared: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(prepared, dtype=np.float32)).to(self.device)
+
+    def _scan_cache(self) -> _VectorCache:
+        if self._cache is None or self._cache_version != self._version:
+            cache = _VectorCache(self._store.all(), self.dimensions, self.device)
+            self._try_share_block(cache)
+            self._cache = cache
+            self._cache_version = self._version
+        return self._cache
+
+    def _try_share_block(self, cache: _VectorCache) -> None:
+        """Shares the flat index's device block with the scan cache when slot
+        order equals lex id order (true after a sorted bulk ingest) — saves a
+        second multi-GB upload of the same vectors."""
+        idx = self._index
+        if not (
+            isinstance(idx, FlatIndex)
+            and idx.storage == "f32"
+            and idx.device == cache.device
+            and cache.n
+            and len(idx) == cache.n
+            and idx.dimension == self.dimensions
+        ):
+            return
+        if idx._cap != cache.cap or not idx._valid[: cache.n].all() or idx._valid[cache.n:].any():
+            return
+        if idx._ids[: cache.n] != cache.ids:
+            return
+        idx._sync_device()
+        x, valid, _lex_order = idx._device
+        cache._x = (x, valid)
+
+    def _slots_to_results(self, cache, slots, raws, ranks) -> list:
+        return [self._to_result(cache.records[int(slot)], float(raw))
+                for slot, raw, rank in zip(slots, raws, ranks) if np.isfinite(rank)]
+
+    def _batch_results(self, cache, out, host_route) -> list:
+        """Per-query Results from a batched pipeline's ``(slots, raws,
+        ranks, ok)``; a query whose ``ok`` is False takes ``host_route(b)``."""
+        top, raws, ranks, finite = (t.cpu().numpy() for t in out)
+        return [self._slots_to_results(cache, top[b], raws[b], ranks[b]) if finite[b]
+                else host_route(b) for b in range(top.shape[0])]
+
+    def _funnel_stages(self, stages, dimensions):
+        if stages is None:
+            stages = [dimensions] if dimensions is not None else [min(self.dimensions, 128)]
+        if not isinstance(stages, (list, tuple)) or not stages or not all(
+            isinstance(s, int) and not isinstance(s, bool) and 0 < s <= self.dimensions
+            for s in stages
+        ):
+            raise E.InvalidStages(f"invalid stages: {stages!r}")
+        return list(stages)
+
+    def _funnel_stage_xsq(self, cache, stages, count):
+        """Prefix squared norms for the fused K5 stage 1, or None when the
+        config takes the plain stage 1 (small corpora, unsupported metric,
+        stage width or count)."""
+        cap = cache.cap
+        if (
+            cap >= pipe._FUSED_STAGE_MIN
+            and flat_scan.supports_candidates(
+                self.metric, cap, stages[0], min(count, max(cache.n, 1)))
+        ):
+            return cache.stage_xsq(stages[0])
+        return None
+
+    def _funnel_device(self, cache, queries, limit, candidates, stages):
+        """The batched funnel pipeline over the cache: device
+        ``(slots, raws, ranks, ok)``."""
+        x, valid = cache.vectors()
+        count = min(candidates, max(cache.n, 1))
+        return pipe.funnel_pipeline_batch(
+            x, valid, queries, self._funnel_stage_xsq(cache, stages, count),
+            metric=self.metric, stages=tuple(stages), count=count, limit=min(limit, count))
+
+    def _quantized_device(self, cache, queries, limit, candidates):
+        """The batched quantized pipeline over the cache: device
+        ``(slots, raws, ranks, ok)``."""
+        x, valid = cache.vectors()
+        count = min(candidates, max(cache.n, 1))
+        return pipe.quantized_pipeline_batch(
+            x, cache.signs(), valid, queries, metric=self.metric, count=count,
+            limit=min(limit, count), d=self.dimensions)
+
+    @observed("funnel_search")
+    def funnel_search(self, query, *, limit=10, candidates=None, stages=None, dimensions=None,
+                      **extra) -> list:
+        """Matryoshka funnel: prefix-staged candidate narrowing + exact rerank
+        (collection.ex:244-260,660-691)."""
+        _reject_extra(extra)
+        _validate_limit(limit)
+        candidates = _default_candidates(candidates, limit)
+        stages = self._funnel_stages(stages, dimensions)
+        q = self.prepare_query(query)
+        cache = self._scan_cache()
+        if cache.n == 0:
+            return []
+        out = self._funnel_device(cache, self._query_tensor(q[None, :]), limit, candidates, stages)
+        return self._batch_results(
+            cache, out, lambda b: self._funnel_host(cache, q, stages, candidates, limit))[0]
+
+    @observed("funnel_search_batch")
+    def funnel_search_batch(self, queries, *, limit=10, candidates=None, stages=None,
+                            dimensions=None, **extra) -> list:
+        """Batched funnel search: one device pipeline for a query batch."""
+        _reject_extra(extra)
+        _validate_limit(limit)
+        candidates = _default_candidates(candidates, limit)
+        stages = self._funnel_stages(stages, dimensions)
+        prepared = self._prepare_query_batch(queries)
+        cache = self._scan_cache()
+        if cache.n == 0:
+            return [[] for _ in range(prepared.shape[0])]
+        if prepared.shape[0] == 0:
+            return []
+        out = self._funnel_device(cache, self._query_tensor(prepared), limit, candidates, stages)
+        return self._batch_results(
+            cache, out,
+            lambda b: self._funnel_host(cache, prepared[b], stages, candidates, limit))
+
+    def funnel_search_batch_device(self, queries_device, *, limit=10, candidates=None,
+                                   stages=None, dimensions=None):
+        """Device-to-device funnel search: takes a resident [B, d] f32
+        PREPARED query block (caller owns validation/normalization — see
+        ``prepare_query``), returns ``(slots, raws, ranks, ok)`` device
+        tensors with no host transfer. The serving/pipelining path, like
+        ``FlatIndex.search_batch_device``; hydrate with
+        ``results_from_device``."""
+        _validate_limit(limit)
+        candidates = _default_candidates(candidates, limit)
+        stages = self._funnel_stages(stages, dimensions)
+        self.ensure_open()
+        return self._funnel_device(self._scan_cache(), queries_device, limit, candidates, stages)
+
+    @observed("quantized_search")
+    def quantized_search(self, query, *, limit=10, candidates=None, **extra) -> list:
+        """Sign-bit Hamming candidates + exact rerank (collection.ex:274-295)."""
+        _reject_extra(extra)
+        _validate_limit(limit)
+        candidates = _default_candidates(candidates, limit)
+        q = self.prepare_query(query)
+        cache = self._scan_cache()
+        if cache.n == 0:
+            return []
+        out = self._quantized_device(cache, self._query_tensor(q[None, :]), limit, candidates)
+        return self._batch_results(
+            cache, out, lambda b: self._quantized_host(cache, q, candidates, limit))[0]
+
+    @observed("quantized_search_batch")
+    def quantized_search_batch(self, queries, *, limit=10, candidates=None, **extra) -> list:
+        """Batched quantized search: one device pipeline for a query batch."""
+        _reject_extra(extra)
+        _validate_limit(limit)
+        candidates = _default_candidates(candidates, limit)
+        prepared = self._prepare_query_batch(queries)
+        cache = self._scan_cache()
+        if cache.n == 0:
+            return [[] for _ in range(prepared.shape[0])]
+        if prepared.shape[0] == 0:
+            return []
+        out = self._quantized_device(cache, self._query_tensor(prepared), limit, candidates)
+        return self._batch_results(
+            cache, out, lambda b: self._quantized_host(cache, prepared[b], candidates, limit))
+
+    def quantized_search_batch_device(self, queries_device, *, limit=10, candidates=None):
+        """Device-to-device quantized search; same contract as
+        ``funnel_search_batch_device``."""
+        _validate_limit(limit)
+        candidates = _default_candidates(candidates, limit)
+        self.ensure_open()
+        return self._quantized_device(self._scan_cache(), queries_device, limit, candidates)
+
+    def results_from_device(self, out) -> list:
+        """Hydrates a ``(slots, raws, ranks, ok)`` device tuple from a
+        ``*_search_batch_device`` call into per-query Result lists. Rows
+        whose ``ok`` flag is False (f32 overflow or selection spill) come
+        back as ``None`` — the sync batch APIs route those to the host
+        oracle instead."""
+        return self._batch_results(self._scan_cache(), out, lambda b: None)
+
+    def _funnel_host(self, cache, q, stages, candidates, limit):
+        self.host_routes += 1
+        pairs = [(r.id, np.asarray(r.vector)) for r in cache.records]
+        for dims in stages:
+            hits = scan_host.vector_top_k(pairs, q, self.metric, dims, candidates)
+            by_id = dict(pairs)
+            pairs = [(id, by_id[id]) for id, _ in hits]
+        hits = scan_host.vector_top_k(pairs, q, self.metric, self.dimensions, limit)
+        return [self._to_result(cache.by_id[id], raw) for id, raw in hits]
+
+    def _quantized_host(self, cache, q, candidates, limit):
+        self.host_routes += 1
+        qwords = [int(w) for w in pack_signs_u64_rows(q[None, :])[0]]
+        pairs = []
+        for r in cache.records:
+            words = [int(w) for w in r.binary_vector] if r.binary_vector is not None else [
+                int(w) for w in pack_signs_u64_rows(np.asarray(r.vector, np.float64)[None, :])[0]
+            ]
+            pairs.append((r.id, words))
+        hits = scan_host.binary_top_k(pairs, qwords, self.dimensions, candidates)
+        survivors = [(id, np.asarray(cache.by_id[id].vector)) for id, _ in hits]
+        final = scan_host.vector_top_k(survivors, q, self.metric, self.dimensions, limit)
+        return [self._to_result(cache.by_id[id], raw) for id, raw in final]
 
     # ------------------------------------------------------------------
     # snapshot / restore (collection.ex:135-164,376-433)
@@ -661,6 +1072,9 @@ def _restore(loaded_store, config, *, name, index, index_options, score, device)
     collection._store = loaded_store
     collection._write_lock = threading.RLock()
     collection._version = 0
+    collection._cache = None
+    collection._cache_version = -1
+    collection.host_routes = 0
 
     records = loaded_store.all()
     _validate_snapshot_records(collection, records)

@@ -1,4 +1,4 @@
-"""Carries the JAX package's flat-search state across to this package.
+"""Carries the JAX package's search state across to this package.
 
 Every function here takes plain numpy arrays (``np.asarray`` of a JAX array
 gives one), so this module needs neither JAX nor ``ml_dtypes``: a bfloat16
@@ -8,7 +8,9 @@ array is recognised by its dtype's name and widened bit for bit.
   JAX ``FlatIndex``'s ``_device`` block and ``_device_scan`` tuple) as this
   package's tensors;
 * :func:`flat_index_from_numpy` — a :class:`FlatIndex` rebuilt from a JAX
-  ``FlatIndex``'s host mirror with its slot layout unchanged.
+  ``FlatIndex``'s host mirror with its slot layout unchanged;
+* :func:`scan_cache_state` — a JAX ``_VectorCache``'s device arrays (the
+  operands of the funnel and quantized pipelines) as this package's tensors.
 
 Snapshots need no conversion: both packages write and read the same file
 format (``store/snapshot.py``).
@@ -37,17 +39,21 @@ def _as_f32(a) -> np.ndarray:
     return np.array(a, dtype=np.float32)
 
 
+def _block(x) -> torch.Tensor:
+    """An ``[N, d]`` f32 or bf16 array as a tensor of the same dtype."""
+    x = np.asarray(x)
+    if _is_bf16(x):
+        return torch.from_numpy(np.array(x).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
 def flat_device_state(x, xsq, bias, lex_rank, *, device):
     """``(x, xsq, bias, lex_rank)`` tensors on ``device`` for
     ``ops.flat_scan.fused_flat_search``, from the JAX operands: ``x``
     ``[N, d]`` f32 or bf16 (kept in its dtype), ``xsq`` and ``bias``
     ``[N]`` or ``[N, 1]`` f32 (flattened), ``lex_rank`` ``[N]`` int32."""
     dev = resolve_device(device)
-    x = np.asarray(x)
-    if _is_bf16(x):
-        x_t = torch.from_numpy(np.array(x).view(np.int16)).view(torch.bfloat16)
-    else:
-        x_t = torch.from_numpy(np.array(x, dtype=np.float32))
+    x_t = _block(x)
     n = x_t.shape[0]
     xsq_t = torch.from_numpy(_as_f32(xsq).reshape(-1))
     bias_t = torch.from_numpy(_as_f32(bias).reshape(-1))
@@ -86,3 +92,29 @@ def flat_index_from_numpy(metric, ids, host_x, valid, *, storage="f32", device="
         raise InvalidVector("duplicate ids in the slot table")
     index._free = [int(s) for s in np.flatnonzero(~valid)[::-1]]
     return index
+
+
+def scan_cache_state(x, valid, bits, signs, stage_xsq, *, device):
+    """``(x, valid, bits, signs, stage_xsq)`` tensors on ``device`` for the
+    ``ops.pipeline`` functions, from a JAX ``_VectorCache``'s device arrays:
+    ``x`` ``[cap, d]`` f32 or bf16 (kept in its dtype), ``valid`` ``[cap]``
+    bool, ``bits`` ``[cap, W]`` uint32 packed sign words (returned as int64,
+    since torch has no shifts for uint32), ``signs`` ``[cap, d]`` ±1 int8 and
+    ``stage_xsq`` ``[cap]`` f32 prefix squared norms or None (each of
+    ``bits``, ``signs`` may be None too)."""
+    dev = resolve_device(device)
+    x_t = _block(x)
+    n = x_t.shape[0]
+    valid_t = torch.from_numpy(np.array(valid, dtype=bool).reshape(-1))
+    bits_t = None if bits is None else torch.from_numpy(
+        np.array(bits, dtype=np.uint32).astype(np.int64))
+    signs_t = None if signs is None else torch.from_numpy(np.array(signs, dtype=np.int8))
+    xsq_t = None if stage_xsq is None else torch.from_numpy(_as_f32(stage_xsq).reshape(-1))
+    for name, t in (("valid", valid_t), ("bits", bits_t), ("signs", signs_t),
+                    ("stage_xsq", xsq_t)):
+        if t is not None and t.shape[0] != n:
+            raise DimensionMismatch(f"{name} has {t.shape[0]} rows, x has {n}")
+    if signs_t is not None and signs_t.shape[1] != x_t.shape[1]:
+        raise DimensionMismatch(f"signs have {signs_t.shape[1]} columns, x has {x_t.shape[1]}")
+    return tuple(None if t is None else t.to(dev)
+                 for t in (x_t, valid_t, bits_t, signs_t, xsq_t))

@@ -1,9 +1,10 @@
 // Exact flat search kernels for Hopper (sm_90a): K1 gmin_scan and K2 rescore.
 //
 // Built at first use by vettore_tpu_torch/_build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libvettore_flat.so flat_scan.cu
-// and bound through ctypes (plain C entry points at the end of this file).
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -Xcompiler -fPIC -c flat_scan.cu
+// linked with the other csrc/*.cu objects into one shared library, and bound
+// through ctypes (plain C entry points at the end of this file).
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
 //

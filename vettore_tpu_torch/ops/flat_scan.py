@@ -1,8 +1,8 @@
-"""Fused exact flat scan: group-min scan kernel + candidate rescore kernel.
+"""Fused flat scans: the exact flat search and the adaptive stage-1 scans.
 
-The port of ``vettore_tpu/ops/flat_scan.py::fused_flat_search``. Two
-hand-written CUDA kernels (``csrc/flat_scan.cu``) carry it, each beside its
-plain PyTorch version in this module:
+The port of ``vettore_tpu/ops/flat_scan.py``. ``fused_flat_search`` is
+carried by two hand-written CUDA kernels (``csrc/flat_scan.cu``), each
+beside its plain PyTorch version in this module:
 
 * **K1** ``gmin_scan`` — matmul, rank conversion and a 64-row group-min in
   one pass; only ``[B, N/64]`` group minima reach device memory. The kernel
@@ -20,6 +20,18 @@ plain PyTorch version in this module:
   rank, then a small (rank, lex id) sort — the reference's (rank, id)
   tie-break, flat.rs:34-40. A rank tie straddling the pad boundary clears
   ``ok`` (lex order not provable without the full candidate sort).
+
+The adaptive pipelines (``ops/pipeline.py``) run three more kernels
+(``csrc/adaptive_scan.cu``):
+
+* **K5** ``stage_gmin_scan`` — funnel stage 1: the true stage metric over
+  the first ``dims`` columns, its 64-row group minima AND the full ``[B, N]``
+  rank matrix, in one pass (``fused_stage_candidates`` selects from them);
+* **K6** ``fused_sign_scan`` — quantized stage 1: Hamming distances of ±1
+  int8 sign rows, their 64-row group minima and the ``[B, N]`` int16
+  Hamming matrix, in one pass;
+* **K7** ``extract_group_rows`` — the gather of selected 64-wide group rows
+  out of K5's or K6's ``[B, N]`` matrix.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors; any other device raises. Each keeps a launch
@@ -60,7 +72,8 @@ _SAFE_LIM = 4e37
 _SAFE_LOG = 86.0  # log(2.2e37) >= log(|dot|) bound via Cauchy-Schwarz
 
 #: kernel launch counts, by kernel name
-LAUNCHES = {"gmin_scan": 0, "rescore": 0}
+LAUNCHES = {"gmin_scan": 0, "rescore": 0, "stage_gmin_scan": 0, "sign_scan": 0,
+            "extract_group_rows": 0}
 
 
 def supports(metric: str, cap: int, k: int) -> bool:
@@ -286,3 +299,248 @@ def _finalize(x, q, top_slot, top_rank, *, metric):
         if metric == "cosine":
             top_rank = 1.0 + top_rank  # rank key was -dot
     return top_slot, raw, top_rank
+
+
+# ---------------------------------------------------------------------------
+# K5: fused stage candidates (funnel stage 1) — prefix matmul + true stage
+# metric + group-min AND the [B, N] rank matrix, one pass
+# ---------------------------------------------------------------------------
+
+#: largest candidate count the fused stage path serves
+MAX_FUSED_C = 512
+
+
+def supports_candidates(metric: str, cap: int, dims: int, count: int) -> bool:
+    """Whether the fused prefix-candidate scan handles this configuration.
+    K5 reads any prefix width (the JAX package's ``dims % 128`` lane-tile
+    gate has no counterpart on the card)."""
+    return metric in FUSED_METRICS and cap % GROUP == 0 and 0 < count <= MAX_FUSED_C
+
+
+def _stage_rank(dots, xsq, qsq, *, metric):
+    """True stage-metric rank from prefix dots — the same formulas as
+    ``pipeline._rank_full`` (true cosine at every width, search.rs:56-58).
+    ``dots`` [B, N], ``xsq`` [1, N], ``qsq`` [B, 1]."""
+    if metric == "cosine":
+        denom = xsq.sqrt() * qsq.sqrt()
+        sim = torch.where(denom > 0.0, dots / denom, 0.0)
+        return 1.0 - sim.clamp(-1.0, 1.0)
+    if metric == "inner_product":
+        return -dots
+    if metric == "negative_inner_product":
+        return dots
+    sq = (xsq - 2.0 * dots + qsq).clamp_min(0.0)
+    return sq.sqrt() if metric == "l2" else sq
+
+
+def _stage_gmin_scan_ref(x, xsq, bias, q, *, metric, dims):
+    """Plain PyTorch version of K5: ``(gmin [B, N/64], rank [B, N])`` of
+    ``stage_rank(x[:, :dims] . q[:, :dims]) + bias``. Under bf16 storage the
+    query prefix is rounded to bf16 (bf16 x bf16 products, exact in f32);
+    ``qsq`` always comes from the f32 prefix."""
+    no_tf32(x)
+    n = x.shape[0]
+    b = q.shape[0]
+    qp = q[:, :dims].float()
+    dots = _scan_query(x, qp) @ x[:, :dims].float().T  # [B, N]
+    rank = _stage_rank(dots, xsq[None, :], (qp * qp).sum(dim=1)[:, None],
+                       metric=metric) + bias[None, :]
+    return rank.reshape(b, n // GROUP, GROUP).amin(dim=-1), rank
+
+
+def stage_gmin_scan(x, xsq, bias, q, *, metric, dims):
+    """Group minima AND the full rank matrix of the true prefix metric:
+    ``(gmin [B, N/64] f32, rank [B, N] f32, bounded)``.
+
+    ``x`` [N, d] f32 or bf16 (only its first ``dims`` columns are read, with
+    row stride d — no prefix copy), ``xsq`` [N] f32 PREFIX squared norms,
+    ``bias`` [N] f32 (0 valid / +inf invalid), ``q`` [B, d] f32. ``bounded``
+    is the Cauchy-Schwarz overflow proof of ``gmin_scan`` over the prefix."""
+    _check_operands(x, xsq, bias, q)
+    if metric not in FUSED_METRICS:
+        raise ValueError(f"stage_gmin_scan has no metric {metric!r}")
+    if not 0 < dims <= x.shape[1]:
+        raise ValueError(f"dims {dims} is not in [1, {x.shape[1]}]")
+    qp = q[:, :dims].float()
+    qsq = (qp * qp).sum(dim=1)
+    bounded = _bounded(xsq, qsq)
+    if x.device.type == "cpu":
+        gmin, rank = _stage_gmin_scan_ref(x, xsq, bias, q, metric=metric, dims=dims)
+        return gmin, rank, bounded
+    if not x.is_cuda:
+        raise ValueError(f"stage_gmin_scan runs on cuda or cpu tensors, not {x.device}")
+    from .. import _build
+
+    n, d = x.shape
+    b = q.shape[0]
+    qs = _scan_query(x, qp).contiguous()
+    gmin = torch.empty((b, n // GROUP), dtype=torch.float32, device=x.device)
+    rank = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    code = lib.vt_stage_gmin_scan(*_launch_args(x, xsq, bias, qs, qsq), gmin.data_ptr(),
+                                  rank.data_ptr(), n, d, dims, b, FUSED_METRICS.index(metric),
+                                  torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "stage_gmin_scan")
+    LAUNCHES["stage_gmin_scan"] += 1
+    return gmin, rank, bounded
+
+
+def fused_stage_candidates(x, xsq, bias, q, *, metric, count, dims):
+    """Exact top-``count`` candidate slots by the true prefix metric.
+
+    ``x`` [N, d] f32 or bf16 (lex-sorted cache block; bf16 selects at
+    storage precision), ``xsq`` [N] f32 PREFIX squared norms (over the first
+    ``dims`` columns), ``bias`` [N] f32 (0 valid / +inf invalid), ``q``
+    [B, d] f32. Returns ``(slots [B, count] int64 best-first by (rank,
+    slot), ranks [B, count] f32, ok [B])``; ok False = overflow or a tie
+    spill past the slack (host fallback).
+
+    Order-statistic exactness as ``fused_flat_search``: the ``count``
+    smallest group-mins are ``count`` distinct elements, so any group whose
+    min exceeds the count-th smallest group-min holds no top-count element
+    (spill past GROUP_SLACK flags ok False). The covered groups' elements
+    are gathered (K7) from K5's own rank output."""
+    n = x.shape[0]
+    b = q.shape[0]
+    gmin, rank, bounded = stage_gmin_scan(x, xsq.reshape(-1), bias.reshape(-1), q,
+                                          metric=metric, dims=dims)
+    ng = n // GROUP
+    gsel = min(count + GROUP_SLACK, ng)
+    _gtop, gidx, spill_ok = select.group_topk(gmin, gsel, check_c=count)
+    # group_topk may return clamped +inf-pad indices when a row has fewer
+    # than gsel finite groups; those rows flag spill_ok False
+    gidx = gidx.clamp_max(ng - 1)
+    cand = extract_group_rows(rank.view(b, ng, GROUP), gidx.int()).reshape(b, gsel * GROUP)
+    cand_slots = _group_rows(gidx).reshape(b, gsel * GROUP)
+    slots, ranks, sel_ok = select.exact_top_c_slots(cand, cand_slots, c=count)
+    return slots, ranks, bounded & spill_ok & sel_ok
+
+
+# ---------------------------------------------------------------------------
+# K6: fused sign scan (quantized stage 1) — ±1 int8 dot + Hamming +
+# group-min + the [B, N] int16 Hamming matrix, one pass
+# ---------------------------------------------------------------------------
+
+#: int16 Hamming of invalid rows (any real value is <= d < 16384)
+_BIG16 = 32767
+
+
+def supports_sign_scan(cap: int, d: int) -> bool:
+    """Whether the fused sign scan serves this block. K6 takes any ``d`` in
+    the int16 Hamming range (the JAX package's ``d % 128`` lane-tile gate
+    has no counterpart on the card)."""
+    return cap % GROUP == 0 and 0 < d < _BIG16 // 2
+
+
+def _check_sign_operands(signs, valid8, qsigns, d):
+    n = signs.shape[0]
+    if signs.dim() != 2 or signs.shape[1] != d or qsigns.dim() != 2 or qsigns.shape[1] != d:
+        raise ValueError(f"signs {tuple(signs.shape)} and qsigns {tuple(qsigns.shape)} "
+                         f"must both have {d} columns")
+    if n % GROUP:
+        raise ValueError(f"row count {n} is not a multiple of {GROUP}")
+    if not 0 < d < _BIG16 // 2:
+        raise ValueError(f"d {d} is outside the int16 Hamming range")
+    for name, t in (("signs", signs), ("valid8", valid8), ("qsigns", qsigns)):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name} must be int8, got {t.dtype}")
+        if t.device != signs.device:
+            raise ValueError(f"operands on {t.device} and {signs.device}")
+    if tuple(valid8.shape) != (n,):
+        raise ValueError(f"valid8 has shape {tuple(valid8.shape)}, expected {(n,)}")
+
+
+def sign_dots(qsigns, signs):
+    """``[B, N]`` int32 dot products of ±1 int8 sign rows. The matmul runs in
+    f32, which is exact here: every product is ±1 and every partial sum an
+    integer of magnitude <= d < 2**24 (so TF32 inputs would be exact too)."""
+    return torch.round(qsigns.float() @ signs.float().T).to(torch.int32)
+
+
+def _fused_sign_scan_ref(signs, valid8, qsigns, *, d):
+    """Plain PyTorch version of K6: ``(gmin [B, N/64] int32, ham16 [B, N]
+    int16)`` with ham = (d - s.q) >> 1 and invalid rows at ``_BIG16``."""
+    n = signs.shape[0]
+    b = qsigns.shape[0]
+    ham = (d - sign_dots(qsigns, signs)) >> 1
+    ham = torch.where(valid8[None, :] != 0, ham, _BIG16)
+    return ham.reshape(b, n // GROUP, GROUP).amin(dim=-1), ham.to(torch.int16)
+
+
+def fused_sign_scan(signs, valid8, qsigns, *, d):
+    """One pass over the ±1 int8 block ``signs`` [N, d] against the query
+    signs ``qsigns`` [B, d]: ``(gmin [B, N/64] int32, ham16 [B, N] int16)``
+    — hamming = (d - s·q)/2 exactly (the packed XOR+popcount value,
+    distances.rs:426-437), rows with ``valid8 == 0`` pinned to ``_BIG16``."""
+    _check_sign_operands(signs, valid8, qsigns, d)
+    if signs.device.type == "cpu":
+        return _fused_sign_scan_ref(signs, valid8, qsigns, d=d)
+    if not signs.is_cuda:
+        raise ValueError(f"fused_sign_scan runs on cuda or cpu tensors, not {signs.device}")
+    from .. import _build
+
+    for t in (signs, valid8, qsigns):
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+    n = signs.shape[0]
+    b = qsigns.shape[0]
+    gmin = torch.empty((b, n // GROUP), dtype=torch.int32, device=signs.device)
+    ham16 = torch.empty((b, n), dtype=torch.int16, device=signs.device)
+    lib = _build.load()
+    code = lib.vt_sign_scan(signs.data_ptr(), valid8.data_ptr(), qsigns.data_ptr(),
+                            gmin.data_ptr(), ham16.data_ptr(), n, d, b,
+                            torch.cuda.current_stream(signs.device).cuda_stream)
+    _build.check(code, "sign_scan")
+    LAUNCHES["sign_scan"] += 1
+    return gmin, ham16
+
+
+# ---------------------------------------------------------------------------
+# K7: covered-row extraction — out[b, c] = mat[b, gidx[b, c]]
+# ---------------------------------------------------------------------------
+
+
+def _extract_group_rows_ref(mat, gidx):
+    """Plain PyTorch version of K7 (indices clamped into ``[0, R)``, as the
+    kernel clamps them)."""
+    b, rows, lanes = mat.shape
+    idx = gidx.long().clamp(0, rows - 1)
+    return mat.gather(1, idx[:, :, None].expand(b, idx.shape[1], lanes))
+
+
+def extract_group_rows(mat, gidx):
+    """``mat`` [B, R, L] f32 or int16, ``gidx`` [B, C] int32 row ids in
+    ``[0, R)``. Returns ``[B, C, L]`` with ``out[b, c] = mat[b, gidx[b, c]]``.
+    Callers pre-clamp pad indices (selection masks their values afterwards);
+    an index outside ``[0, R)`` is clamped, never read out of range.
+
+    The JAX package gathers 64-wide group rows as HALF rows of a 128-lane
+    view (``half=True``) because Mosaic loads whole 128-lane rows; here the
+    64-wide rows of the ``[B, N/64, 64]`` view are gathered directly."""
+    if mat.dim() != 3 or gidx.dim() != 2 or gidx.shape[0] != mat.shape[0]:
+        raise ValueError(f"mat {tuple(mat.shape)} and gidx {tuple(gidx.shape)} do not pair")
+    if mat.dtype not in (torch.float32, torch.int16):
+        raise TypeError(f"mat must be float32 or int16, got {mat.dtype}")
+    if gidx.dtype != torch.int32 or gidx.device != mat.device:
+        raise TypeError("gidx must be an int32 tensor on mat's device")
+    if mat.device.type == "cpu":
+        return _extract_group_rows_ref(mat, gidx)
+    if not mat.is_cuda:
+        raise ValueError(f"extract_group_rows runs on cuda or cpu tensors, not {mat.device}")
+    from .. import _build
+
+    b, rows, lanes = mat.shape
+    row_bytes = lanes * mat.element_size()
+    if not mat.is_contiguous() or mat.data_ptr() % 16 or row_bytes % 16:
+        raise ValueError("mat must be contiguous and 16-byte aligned, with rows of a "
+                         "multiple of 16 bytes")
+    gidx = gidx.contiguous()
+    c = gidx.shape[1]
+    out = torch.empty((b, c, lanes), dtype=mat.dtype, device=mat.device)
+    lib = _build.load()
+    code = lib.vt_extract_group_rows(mat.data_ptr(), gidx.data_ptr(), out.data_ptr(),
+                                     b, rows, c, row_bytes,
+                                     torch.cuda.current_stream(mat.device).cuda_stream)
+    _build.check(code, "extract_group_rows")
+    LAUNCHES["extract_group_rows"] += 1
+    return out
