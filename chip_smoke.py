@@ -1,10 +1,11 @@
 """On-card smoke gate of the PyTorch port (``vettore_tpu_torch``).
 
-Drives the port's paths — exact flat search, and the funnel and quantized
-search modes, through ``Collection`` — on one CUDA card, builds the
-hand-written CUDA kernels from this checkout, holds every kernel against its
-plain PyTorch version at the main path's shapes, and checks search results
-against float64 numpy oracles. Imports nothing of JAX.
+Drives the port's paths — exact flat search (f32, bf16 and int8 storage),
+the funnel and quantized search modes, and the multi-vector MaxSim search,
+through ``Collection`` — on one CUDA card, builds the hand-written CUDA
+kernels from this checkout, holds every kernel against its plain PyTorch
+version at the main path's shapes, and checks search results against
+float64 numpy oracles. Imports nothing of JAX.
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -16,6 +17,11 @@ Phases (each prints one line; any failure exits non-zero):
    128; cosine and l2, f32 and bf16), K6 ``fused_sign_scan`` and K7
    ``extract_group_rows`` (at the funnel's and the quantized mode's
    shapes) against their plain versions, with median times of both;
+2c. K3 ``int8_gmin_scan`` (bit-equal) and K4 ``int8_rescore`` at the same
+   N, d, B (cosine and l2), and the MaxSim kernel ``maxsim_rank_scan`` at
+   BASELINE config 5's shape (N = 100,352 docs x 32 tokens x 128 d, 64 sets
+   of 4 query tokens: bf16 and f32 blocks of full docs, and an f32 block with
+   random token counts and dead docs) against their plain versions;
 3. BASELINE config 1: 100k x 384 cosine f32, limit 10, 64 queries, against
    the oracle; single-query ``search`` equals ``search_batch``;
 4. headline scale: 1M x 768 cosine f32 clustered corpus, batch 512, limit 10:
@@ -28,10 +34,22 @@ Phases (each prints one line; any failure exits non-zero):
    grown, times per batch, a ``torch.profiler`` trace of three batches of
    each device path (device busy time, idle share, top kernels), overlap@10
    against phase 4's exact results;
+4c. ``storage_view("int8")`` of phase 4's index: overlap@10 against exact
+   f32 on 32 queries, no host route, the K3/K4 launch counts grown, ms per
+   device batch of 512;
 5. snapshot: the phase-3 collection written and loaded back gives the same
-   ids.
+   ids;
+6. BASELINE config 5, exact MaxSim: 100,000 docs x 32 bf16-exact tokens x
+   128 d through ``put_tokens``, 128 query sets of 4 tokens, limit 10, batch
+   64; ids equal a float64 MaxSim oracle on 8 sets, no host route, the
+   MaxSim launch count grown by the batches and by one single-set
+   ``multi_vector_search``, ms per batch, a ``torch.profiler`` split of one
+   batch; then a small ragged corpus against the oracle.
 
-The last two lines of standard output are a JSON summary of the kernels and
+The last two lines of standard output are a JSON summary of the kernels
+(each with its launches on its path, max abs error against its plain
+version, and max relative error where the tolerance is relative, kernel /
+plain / library ms and its bound) and
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (needs one CUDA card
@@ -67,6 +85,19 @@ K2_ATOL = 1e-5
 #: K5 group minima and ranks: as K1 (f32 summation order; bf16 products
 #: exact, accumulated in another order); K6 and K7 must be bit-equal
 K5_ATOL = K1_ATOL
+#: K3 must be bit-equal; K4 and the f32 MaxSim ranks within 1e-5 * max(1,
+#: |rank|) (f32 sums in another order); bf16 MaxSim ranks within 1e-4 *
+#: max(1, |rank|) (exact bf16 products summed in another order)
+K4_RTOL = 1e-5
+MV_RTOL = {"f32": 1e-5, "bf16": 1e-4}
+#: int8 storage against exact f32 (phase 4c)
+INT8_OVERLAP_MIN = 0.90
+#: BASELINE.json config 5: docs x tokens x d, query sets of 4 tokens, batch
+MV_N, MV_T, MV_D, MV_Q, MV_B, MV_SETS = 100_000, 32, 128, 4, 64, 128
+MV_ORACLE_SETS = 8
+#: the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
+#: f32 on CUDA cores, bf16 and int8 on tensor cores, HBM3 bytes per second
+PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12, "bytes": 3.35e12}
 #: BASELINE.json configs 3 (quantized) and 4 (funnel)
 QUANT_C = 500
 FUNNEL_STAGES, FUNNEL_C = (128, 256, 384), 200
@@ -130,6 +161,23 @@ def check_hits(got, want, limit):
             swaps += 1
         assert abs(gscore - score_of[gid]) < SCORE_TOL, (gid, gscore, score_of[gid])
     return swaps
+
+
+def bound(ops, rate, nbytes):
+    """The least time the card could take, in ms: the larger of ``ops`` at
+    the ``rate`` peak and ``nbytes`` at the memory rate; and which bounds
+    it."""
+    t_ops, t_bytes = ops / PEAK[rate], nbytes / PEAK["bytes"]
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def abs_rel_err(got, want):
+    """Largest ``|got - want|`` and largest ``|got - want| / max(1, |want|)``
+    over the finite entries; the non-finite entries must be equal."""
+    fin = want.isfinite()
+    assert got.isfinite().eq(fin).all() and got[~fin].eq(want[~fin]).all(), "finiteness differs"
+    diff = (got[fin] - want[fin]).abs()
+    return diff.max().item(), (diff / want[fin].abs().clamp_min(1.0)).max().item()
 
 
 def cuda_ms(torch, fn, reps=7):
@@ -205,9 +253,13 @@ def adaptive_kernels(torch, fs, select, x32, bias, q, card):
         assert torch.equal(out, fs._extract_group_rows_ref(mat, gidx)), f"K7 {label} differs"
         k7 = cuda_ms(torch, lambda: fs.extract_group_rows(mat, gidx))
         k7_plain = cuda_ms(torch, lambda: fs._extract_group_rows_ref(mat, gidx))
+        # the one PyTorch call computing the same rows (the port never calls it)
+        idx3 = gidx.long()[:, :, None].expand(b, gidx.shape[1], fs.GROUP).contiguous()
+        k7_lib = cuda_ms(torch, lambda: torch.gather(mat, 1, idx3))
         log(f"  K7 extract_group_rows {label} [{b}, {gidx.shape[1]}, {fs.GROUP}] "
-            f"{mat.dtype}: bit-equal, {k7:.3f} ms vs plain {k7_plain:.3f} ms {card}")
-        return k7, k7_plain
+            f"{mat.dtype}: bit-equal, {k7:.3f} ms vs plain {k7_plain:.3f} ms, torch.gather "
+            f"{k7_lib:.3f} ms {card}")
+        return k7, k7_plain, k7_lib
 
     k7_case(funnel_rank.view(b, ng, fs.GROUP), funnel_gmin, FUNNEL_C + fs.GROUP_SLACK,
             "funnel")
@@ -225,9 +277,317 @@ def adaptive_kernels(torch, fs, select, x32, bias, q, card):
                                                                        d=x32.shape[1]))
     log(f"  K6 sign_scan d={x32.shape[1]}: bit-equal, {times['k6']:.3f} ms vs plain "
         f"{times['k6_plain']:.3f} ms {card}")
-    times["k7"], times["k7_plain"] = k7_case(ham16.view(b, ng, fs.GROUP), gmin6, QUANT_C,
-                                             "quantized")
+    times["k7"], times["k7_plain"], times["k7_lib"] = k7_case(
+        ham16.view(b, ng, fs.GROUP), gmin6, QUANT_C, "quantized")
     return errs, times
+
+
+def distinct_rows(gidx):
+    """Rows of the distinct 64-row groups ``gidx`` selects: what a rescore
+    must read at least once."""
+    return int(gidx.unique().numel()) * 64
+
+
+def int8_kernels(torch, fs, select, x32, bias, q, card):
+    """Phase 2c, int8: K3 (bit-equal) and K4 against their plain versions at
+    the main path's shapes. Returns (max abs errors, max relative errors,
+    times and bounds of the cosine configuration)."""
+    n, d = x32.shape
+    b = q.shape[0]
+    x8, scale = fs.quantize_rows(x32)
+    xsq = (x32 * x32).sum(dim=1)
+    q8, qscale = fs.quantize_rows(q)
+    qsq = (q * q).sum(dim=1)
+    errs = {"int8_gmin_scan": 0.0, "int8_rescore": 0.0}
+    rel = {"int8_rescore": 0.0}
+    out = {}
+    for metric in ("cosine", "l2"):
+        args = (x8, scale, xsq, bias, q8, qscale, qsq)
+        gmin, bounded = fs.int8_gmin_scan(*args, metric=metric)
+        ref = fs._int8_gmin_scan_ref(*args, metric=metric)
+        assert bool(bounded) and torch.equal(gmin, ref), f"K3 {metric} is not bit-equal"
+        _v, gidx, _ok = select.group_topk(ref, 16 + fs.GROUP_SLACK, check_c=16)
+        gidx = gidx.int()
+        del ref, gmin
+        resc = fs.int8_rescore(x8, scale, xsq, bias, q, gidx, metric=metric)
+        a4, e4 = abs_rel_err(resc, fs._int8_rescore_ref(x8, scale, xsq, bias, q, gidx,
+                                                        metric=metric))
+        assert e4 <= K4_RTOL, f"K4 {metric} err {e4}"
+        errs["int8_rescore"] = max(errs["int8_rescore"], a4)
+        rel["int8_rescore"] = max(rel["int8_rescore"], e4)
+        t = {
+            "k3": cuda_ms(torch, lambda: fs.int8_gmin_scan(*args, metric=metric)),
+            "k3_plain": cuda_ms(torch, lambda: fs._int8_gmin_scan_ref(*args, metric=metric)),
+            "k4": cuda_ms(torch, lambda: fs.int8_rescore(x8, scale, xsq, bias, q, gidx,
+                                                         metric=metric)),
+            "k4_plain": cuda_ms(torch, lambda: fs._int8_rescore_ref(x8, scale, xsq, bias, q,
+                                                                    gidx, metric=metric)),
+        }
+        log(f"  K3 int8_gmin_scan {metric}: bit-equal, {t['k3']:.3f} ms vs plain "
+            f"{t['k3_plain']:.3f} ms | K4 int8_rescore: abs err {a4:.3g}, rel err {e4:.3g} "
+            f"(rtol {K4_RTOL}), "
+            f"{t['k4']:.3f} ms vs plain {t['k4_plain']:.3f} ms {card}")
+        if metric == "cosine":
+            gsel = gidx.shape[1]
+            t["k3_bound"] = bound(2 * n * d * b, "int8",
+                                  n * d + 3 * 4 * n + b * d + 8 * b + 4 * b * (n // 64))
+            # distinct rows: d int8 values and three f32 side values each
+            t["k4_bound"] = bound(2 * b * gsel * 64 * d, "f32",
+                                  distinct_rows(gidx) * (d + 12)
+                                  + 4 * b * (d + 1 + gsel + gsel * 64))
+            out = t
+    return errs, rel, out
+
+
+def mv_block(torch, dev, gen, n, t, d, dtype):
+    """A config-5-shaped token block on the card: doc centres plus token
+    noise 0.3/sqrt(d), in ``dtype``."""
+    centres = torch.randn((n, 1, d), generator=gen, device=dev)
+    centres /= centres.norm(dim=2, keepdim=True)
+    noise = torch.randn((n, t, d), generator=gen, device=dev) * (0.3 / d ** 0.5)
+    return (centres + noise).to(dtype)
+
+
+def maxsim_kernels(torch, ms, card):
+    """Phase 2c, MaxSim: the kernel against its plain version at config 5's
+    shape (cap of 100,000 docs, 32 tokens, d = 128, 64 sets of 4 tokens).
+    Returns (max abs error, max relative error, times and bound of the full
+    bf16 case)."""
+    from vettore_tpu_torch.collection import _cap_at_least
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n, t, d, b, nq = _cap_at_least(MV_N), MV_T, MV_D, MV_B, MV_Q
+    qt = torch.randn((b * nq, d), generator=gen, device=dev)
+    qt /= qt.norm(dim=1, keepdim=True)
+    qinv = 1.0 / qt.norm(dim=1)
+    err, rel, out = 0.0, 0.0, {}
+    for label, dtype, ragged in (("full bf16", torch.bfloat16, False),
+                                 ("full f32", torch.float32, False),
+                                 ("ragged f32", torch.float32, True)):
+        tokens = mv_block(torch, dev, gen, n, t, d, dtype)
+        counts = torch.full((n,), t, dtype=torch.int32, device=dev)
+        dbias = torch.zeros(n, device=dev)
+        if ragged:
+            counts = torch.randint(0, t + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+            tokens[torch.arange(t, device=dev)[None, :] >= counts[:, None]] = 0
+            dbias[torch.randperm(n, generator=gen, device=dev)[: n // 50]] = float("inf")
+        qs = qt.to(torch.bfloat16).float() if dtype == torch.bfloat16 else qt
+        rank = ms.maxsim_rank_scan(tokens, counts, dbias, qt, qinv, b=b, metric="cosine")
+        storage = "bf16" if dtype == torch.bfloat16 else "f32"
+        a, e = abs_rel_err(rank, ms._maxsim_rank_scan_ref(tokens, counts, dbias, qs, qinv, b=b,
+                                                          metric="cosine"))
+        assert e <= MV_RTOL[storage], f"MaxSim {label} err {e}"
+        err, rel = max(err, a), max(rel, e)
+        k = cuda_ms(torch, lambda: ms.maxsim_rank_scan(tokens, counts, dbias, qt, qinv, b=b,
+                                                       metric="cosine"))
+        plain = cuda_ms(torch, lambda: ms._maxsim_rank_scan_ref(tokens, counts, dbias, qs, qinv,
+                                                               b=b, metric="cosine"), reps=3)
+        ops = 2 * n * t * d * b * nq
+        nbytes = tokens.numel() * tokens.element_size() + 4 * (2 * n + 2 * b * nq + b * n)
+        bnd = bound(ops, storage, nbytes)
+        log(f"  maxsim_rank_scan {label} [{n}, {t}, {d}] x [{b} x {nq}]: abs err {a:.3g}, "
+            f"rel err {e:.3g} (rtol "
+            f"{MV_RTOL[storage]}), {k:.3f} ms vs plain {plain:.3f} ms; bound {bnd[0]:.3f} ms "
+            f"({bnd[1]}) {card}")
+        if label == "full bf16":
+            out = {"ms": k, "plain_ms": plain, "bound": bnd}
+        del tokens, rank
+        torch.cuda.empty_cache()
+    return err, rel, out
+
+
+def int8_view(torch, col, queries, exact, card):
+    """Phase 4c: ``storage_view("int8")`` of phase 4's index. Returns the
+    launch counts of the run that drove it."""
+    from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.ops.distance import normalize_rows
+
+    t1 = time.perf_counter()
+    view = col.index.storage_view("int8")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t1
+    assert view._device[0].dtype == torch.int8 and view._fused_eligible(16)
+    prepared = normalize_rows(queries, "l2")
+    for name in fs.LAUNCHES:
+        fs.LAUNCHES[name] = 0
+    got = view.search_batch(prepared, 10)
+    torch.cuda.synchronize()
+    launches = dict(fs.LAUNCHES)
+    assert launches["int8_gmin_scan"] > 0 and launches["int8_rescore"] > 0, launches
+    assert view.host_routes == 0, f"host routes: {view.host_routes}"
+    hits = [len({h[0] for h in a} & {r.id for r in w}) / 10 for a, w in zip(got, exact)]
+    overlap = float(np.mean(hits[:32]))
+    assert overlap >= INT8_OVERLAP_MIN, f"int8 overlap@10 {overlap}"
+    qdev = torch.from_numpy(prepared).to(col.device)
+    ms_dev = host_ms(torch, lambda: view.search_batch_device(qdev, 10))
+    log(f"  int8 view: quantized on the card in {quant_s:.1f}s; overlap@10 against exact f32 "
+        f"on 32 queries {overlap:.4f} (all {len(queries)}: {np.mean(hits):.4f}); "
+        f"search_batch_device B={len(queries)} {ms_dev:.3f} ms {card}")
+    return launches, overlap, ms_dev
+
+
+def bf16_round(torch, a):
+    """f32 values rounded to the nearest bf16 (ties to even)."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def maxsim_oracle(docs, sets, ids, limit, lens=None, chunk=8192):
+    """Exact cosine MaxSim in float64 of every doc (``docs`` [N, T, d], the
+    first ``lens[n]`` tokens live, all when ``lens`` is None) against each
+    query set; the top ``limit + 4`` by (score desc, id). Returns ``[(ids,
+    scores)]``."""
+    q = np.concatenate(sets).astype(np.float64)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    bounds = np.cumsum([0] + [len(s) for s in sets])
+    n, t, d = docs.shape
+    totals = np.empty((n, len(sets)))
+    for s in range(0, n, chunk):
+        c = docs[s:s + chunk].astype(np.float64).reshape(-1, d)
+        norms = np.linalg.norm(c, axis=1, keepdims=True)
+        sims = (c @ q.T) / np.where(norms > 0, norms, 1.0)
+        sims = sims.reshape(-1, t, q.shape[0])
+        if lens is not None:
+            live = np.arange(t)[None, :] < lens[s:s + chunk, None]
+            sims = np.where(live[:, :, None], sims, -np.inf)
+        best = sims.max(axis=1)  # [chunk, all query tokens]
+        totals[s:s + chunk] = np.add.reduceat(best, bounds[:-1], axis=1)
+    out = []
+    for j in range(len(sets)):
+        cand = np.argpartition(-totals[:, j], limit + 4)[: limit + 4]
+        order = sorted(cand, key=lambda i: (-totals[i, j], ids[i]))
+        out.append(([ids[i] for i in order], [float(totals[i, j]) for i in order]))
+    return out
+
+
+def profile_split(torch, fn, card, reps=3):
+    """``torch.profiler`` device time of ``fn`` per call, split into the
+    MaxSim kernel, K7, sorts, gathers and the rest, with the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / reps
+    parts = {"maxsim_rank_scan": 0.0, "K7 extract_group_rows": 0.0, "sorts": 0.0,
+             "gathers": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        name = e.key.lower()
+        part = ("maxsim_rank_scan" if "maxsim" in name else
+                "K7 extract_group_rows" if "extract_rows" in name else
+                "sorts" if "sort" in name else
+                "gathers" if "gather" in name or "index" in name else "other")
+        parts[part] += e.self_device_time_total / 1e3 / reps
+    busy = sum(parts.values())
+    log(f"  profile MaxSim device batch: device busy {busy:.3f} ms per call, wall {wall:.3f} "
+        f"ms, idle {max(0.0, 1 - busy / wall):.1%}; " +
+        ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" (ms per call) {card}")
+
+
+def maxsim_config5(torch, vt, rng, card):
+    """Phase 6: BASELINE config 5's exact MaxSim through ``Collection``, then
+    a small ragged corpus. Returns the launch counts of the config-5 run."""
+    from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.ops import maxsim as ms
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    docs = clustered(rng, MV_N, MV_D)
+    noise = np.float32(0.3 / np.sqrt(MV_D))
+    tokens = np.empty((MV_N, MV_T, MV_D), np.float32)
+    for s in range(0, MV_N, 10_000):  # bounded temporaries
+        part = docs[s:s + 10_000, None, :] + noise * rng.standard_normal(
+            (min(10_000, MV_N - s), MV_T, MV_D), dtype=np.float32)
+        tokens[s:s + 10_000] = bf16_round(torch, part)
+    queries = near_queries(rng, docs, MV_SETS)
+    sets = [bf16_round(torch, qv[None, :] + noise * rng.standard_normal((MV_Q, MV_D),
+                                                                       dtype=np.float32))
+            for qv in queries]
+    ids = [f"mv-{i:06d}" for i in range(MV_N)]
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    col = vt.Collection(name="config-5", dimensions=MV_D, metric="cosine", index="flat",
+                        normalize="none", device=dev)
+    col.put_tokens(ids, tokens)
+    cache = col._scan_cache()
+    block, counts = cache.multi_vectors()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    assert block.dtype == torch.bfloat16 and bool((counts[:MV_N] == MV_T).all()), block.dtype
+    assert ms.supports_fused("cosine", cache.cap, MV_Q)
+    query_sets = [s.tolist() for s in sets]
+    for table in (fs.LAUNCHES, ms.LAUNCHES):
+        for name in table:
+            table[name] = 0
+    got = []
+    for lo in range(0, MV_SETS, MV_B):
+        got += col.multi_vector_search_batch(query_sets[lo:lo + MV_B], limit=10)
+    single = col.multi_vector_search(query_sets[0], limit=10)
+    torch.cuda.synchronize()
+    launches = {**fs.LAUNCHES, **ms.LAUNCHES}
+    assert launches["maxsim_rank_scan"] == MV_SETS // MV_B + 1, launches
+    assert [r.id for r in single] == [r.id for r in got[0]], "single set != batch"
+    assert launches["maxsim_rank_scan"] > 0 and launches["extract_group_rows"] > 0, launches
+    assert col.host_routes == 0, f"host routes: {col.host_routes}"
+    t0 = time.perf_counter()
+    want = maxsim_oracle(tokens, sets[:MV_ORACLE_SETS], ids, 10)
+    oracle_s = time.perf_counter() - t0
+    swaps = sum(check_hits([(r.id, r.score) for r in row], w, 10)
+                for row, w in zip(got[:MV_ORACLE_SETS], want))
+    qtok, qmask = col._pad_query_sets(query_sets[:MV_B])
+    qtok, qmask = torch.from_numpy(qtok).to(dev), torch.from_numpy(qmask).to(dev)
+    valid = cache.valid_mask()
+
+    def device_batch():
+        return ms.fused_maxsim_topk_batch(block, counts, valid, qtok, qmask, metric="cosine",
+                                          limit=10)
+
+    assert bool(device_batch()[2].all()), "a device batch flagged ok False"
+    ms_dev = host_ms(torch, device_batch)
+    ms_sync = host_ms(torch, lambda: col.multi_vector_search_batch(query_sets[:MV_B], limit=10),
+                      reps=3)
+    ms_single = host_ms(torch, lambda: col.multi_vector_search(query_sets[0], limit=10), reps=3)
+    log(f"  corpus {MV_N}x{MV_T}x{MV_D} made in {gen_s:.1f}s; put_tokens + bf16 token block "
+        f"{ingest_s:.1f}s; ms per batch of {MV_B} sets: device {ms_dev:.3f}, sync (hydrated) "
+        f"{ms_sync:.3f}; single-set multi_vector_search {ms_single:.3f} ms {card}")
+    profile_split(torch, device_batch, card)
+    log(f"  ids equal the f64 oracle on {MV_ORACLE_SETS} sets ({swaps} near-tie swaps; oracle "
+        f"{oracle_s:.1f}s); single-set search == its batch row; host routes 0; launches "
+        f"{launches}")
+    del col, cache, block, counts, tokens
+    torch.cuda.empty_cache()
+
+    # a ragged corpus through put_many with vectors: counts below T
+    n, ids = 3000, [f"rg-{i:05d}" for i in range(3000)]
+    lens = rng.integers(1, MV_T + 1, n)
+    docs = clustered(rng, n, MV_D)
+    ragged = [docs[i] + noise * rng.standard_normal((lens[i], MV_D), dtype=np.float32)
+              for i in range(n)]
+    col = vt.Collection(name="ragged", dimensions=MV_D, metric="cosine", index="flat",
+                        normalize="none", device=dev)
+    col.put_many([{"id": i, "vectors": list(v)} for i, v in zip(ids, ragged)])
+    before = ms.LAUNCHES["maxsim_rank_scan"]
+    got = col.multi_vector_search_batch(query_sets[:MV_ORACLE_SETS], limit=10)
+    assert (col._scan_cache().multi_vectors()[1][:n] < MV_T).any()
+    assert ms.LAUNCHES["maxsim_rank_scan"] > before
+    assert col.host_routes == 0
+    padded = np.zeros((n, MV_T, MV_D), np.float32)
+    for i, v in enumerate(ragged):
+        padded[i, : len(v)] = v
+    want = maxsim_oracle(padded, sets[:MV_ORACLE_SETS], ids, 10, lens=lens)
+    swaps_r = sum(check_hits([(r.id, r.score) for r in row], w, 10)
+                  for row, w in zip(got, want))
+    log(f"  ragged corpus ({n} docs of 1..{MV_T} tokens): ids equal the f64 "
+        f"oracle on {MV_ORACLE_SETS} sets ({swaps_r} near-tie swaps)")
+    col.close()
+    return launches, ms_dev, ms_sync
 
 
 def quantized_oracle(stored, q, count, limit):
@@ -401,6 +761,7 @@ def main() -> int:
     import vettore_tpu_torch as vt
     from vettore_tpu_torch import _build
     from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.ops import maxsim as ms
     from vettore_tpu_torch.ops import scan_host, select
     from vettore_tpu_torch.ops.distance import normalize_rows
 
@@ -464,6 +825,7 @@ def main() -> int:
                 "k2_plain": cuda_ms(torch, lambda: fs._rescore_ref(x, xsq, bias, q, gidx,
                                                                    metric=metric)),
             }
+            t["k2_rows"] = distinct_rows(gidx)
             times[(storage, metric)] = t
             log(f"  K1 gmin_scan {storage} {metric}: err {e1:.3g} (atol {K1_ATOL[storage]}), "
                 f"{t['k1']:.3f} ms vs plain {t['k1_plain']:.3f} ms | K2 rescore: err "
@@ -479,11 +841,22 @@ def main() -> int:
     t0 = time.perf_counter()
     adaptive_errs, adaptive_times = adaptive_kernels(torch, fs, select, x32, bias, q, card)
     errs.update(adaptive_errs)
-    del x32, xsq, bias, q
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"[phase 2b] K5/K6/K7 match their plain versions at N={N_MAIN} d={D_MAIN} "
         f"B={B_MAIN} ({time.perf_counter() - t0:.1f}s)")
+
+    # ---- phase 2c: K3/K4 and the MaxSim kernel against their plain versions
+    t0 = time.perf_counter()
+    int8_errs, rel_errs, int8_times = int8_kernels(torch, fs, select, x32, bias, q, card)
+    errs.update(int8_errs)
+    del x32, xsq, bias, q
+    torch.cuda.empty_cache()
+    errs["maxsim_rank_scan"], rel_errs["maxsim_rank_scan"], mv_times = maxsim_kernels(
+        torch, ms, card)
+    torch.cuda.synchronize()
+    log(f"[phase 2c] K3 bit-equal and K4 match at N={N_MAIN} d={D_MAIN} B={B_MAIN}; the "
+        f"MaxSim kernel matches at config 5's shape ({time.perf_counter() - t0:.1f}s)")
 
     # ---- phase 3: BASELINE config 1 (100k x 384 cosine f32, limit 10) ----
     t0 = time.perf_counter()
@@ -557,6 +930,13 @@ def main() -> int:
     del view
     torch.cuda.empty_cache()
 
+    # ---- phase 4c: int8 storage view of the same index ---------------------
+    t0 = time.perf_counter()
+    int8_launches, int8_overlap, ms_int8 = int8_view(torch, col, queries, got, card)
+    torch.cuda.empty_cache()
+    log(f"[phase 4c] int8 view: overlap@10 {int8_overlap:.4f} against exact f32, host routes "
+        f"0, launches {int8_launches} ({time.perf_counter() - t0:.1f}s)")
+
     # ---- phase 4b: BASELINE configs 3 and 4 on the same collection --------
     t0 = time.perf_counter()
     adaptive_launches = adaptive_modes(torch, col, stored, queries, got, card)
@@ -579,22 +959,49 @@ def main() -> int:
     log(f"[phase 5] snapshot written and loaded back: same ids "
         f"({time.perf_counter() - t0:.1f}s)")
 
+    # ---- phase 6: BASELINE config 5, exact MaxSim --------------------------
+    t0 = time.perf_counter()
+    mv_launches, _ms_mv, _ms_mv_sync = maxsim_config5(torch, vt, rng, card)
+    log(f"[phase 6] config 5 exact MaxSim ({MV_N}x{MV_T}x{MV_D} bf16, {MV_SETS} sets of "
+        f"{MV_Q}, limit 10, batch {MV_B}): ids equal the f64 oracle, ok all true, launches "
+        f"maxsim_rank_scan {mv_launches['maxsim_rank_scan']} "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    # bounds from this run's shapes: the f32 cosine main configurations,
+    # config 5's full bf16 block; K2 and K4 read the distinct selected rows
+    n, d, b, g = N_MAIN, D_MAIN, B_MAIN, N_MAIN // fs.GROUP
+    gsel, dims, c7 = 16 + fs.GROUP_SLACK, FUNNEL_STAGES[0], QUANT_C
     main_t = times[("f32", "cosine")]
-    kernels = [
-        {"name": "gmin_scan", "route": "cuda", "source": "vettore_tpu_torch/csrc/flat_scan.cu",
-         "replaces": "vettore_tpu/ops/flat_scan.py:134", "launches": launches["gmin_scan"],
-         "max_abs_err": errs["gmin_scan"], "ms": main_t["k1"], "plain_ms": main_t["k1_plain"]},
-        {"name": "rescore", "route": "cuda", "source": "vettore_tpu_torch/csrc/flat_scan.cu",
-         "replaces": "vettore_tpu/ops/flat_scan.py:208", "launches": launches["rescore"],
-         "max_abs_err": errs["rescore"], "ms": main_t["k2"], "plain_ms": main_t["k2_plain"]},
+    rows = [
+        ("gmin_scan", "flat_scan.cu", "flat_scan.py:134", launches, main_t["k1"],
+         main_t["k1_plain"], None, bound(2 * n * d * b, "f32", 4 * (n * d + 2 * n + b * d + b + b * g))),
+        ("rescore", "flat_scan.cu", "flat_scan.py:208", launches, main_t["k2"],
+         main_t["k2_plain"], None,
+         bound(2 * b * gsel * 64 * d, "f32",
+               main_t["k2_rows"] * (4 * d + 8) + 4 * b * (d + 1 + gsel + gsel * 64))),
+        ("int8_gmin_scan", "int8_scan.cu", "flat_scan.py:579", int8_launches, int8_times["k3"],
+         int8_times["k3_plain"], None, int8_times["k3_bound"]),
+        ("int8_rescore", "int8_scan.cu", "flat_scan.py:634", int8_launches, int8_times["k4"],
+         int8_times["k4_plain"], None, int8_times["k4_bound"]),
+        ("stage_gmin_scan", "adaptive_scan.cu", "flat_scan.py:380", adaptive_launches,
+         adaptive_times["k5"], adaptive_times["k5_plain"], None,
+         bound(2 * n * dims * b, "f32", 4 * (n * dims + 2 * n + b * dims + b + b * n + b * g))),
+        ("sign_scan", "adaptive_scan.cu", "flat_scan.py:518", adaptive_launches,
+         adaptive_times["k6"], adaptive_times["k6_plain"], None,
+         bound(2 * n * d * b, "int8", n * d + n + b * d + 2 * b * n + 4 * b * g)),
+        ("extract_group_rows", "adaptive_scan.cu", "flat_scan.py:789", adaptive_launches,
+         adaptive_times["k7"], adaptive_times["k7_plain"], adaptive_times["k7_lib"],
+         bound(0, "f32", 2 * (b * c7 * 64 * 2) + 4 * b * c7)),
+        ("maxsim_rank_scan", "maxsim.cu", "maxsim.py:526,490", mv_launches, mv_times["ms"],
+         mv_times["plain_ms"], None, mv_times["bound"]),
     ]
-    adaptive_source = "vettore_tpu_torch/csrc/adaptive_scan.cu"
-    for name, key, line in (("stage_gmin_scan", "k5", 380), ("sign_scan", "k6", 518),
-                            ("extract_group_rows", "k7", 789)):
-        kernels.append({"name": name, "route": "cuda", "source": adaptive_source,
-                        "replaces": f"vettore_tpu/ops/flat_scan.py:{line}",
-                        "launches": adaptive_launches[name], "max_abs_err": errs[name],
-                        "ms": adaptive_times[key], "plain_ms": adaptive_times[key + "_plain"]})
+    kernels = [
+        {"name": name, "route": "cuda", "source": f"vettore_tpu_torch/csrc/{src}",
+         "replaces": f"vettore_tpu/ops/{tpu}", "launches": counts[name],
+         "max_abs_err": errs[name], "max_rel_err": rel_errs.get(name), "ms": k_ms,
+         "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
+        for name, src, tpu, counts, k_ms, plain_ms, lib_ms, bnd in rows
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

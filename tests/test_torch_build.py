@@ -20,7 +20,7 @@ def csrc(tmp_path):
 def test_every_kernel_source_is_built():
     names = [p.name for p in _build.sources()]
     assert names == sorted(names)
-    assert {"flat_scan.cu", "adaptive_scan.cu"} <= set(names)
+    assert {"flat_scan.cu", "adaptive_scan.cu", "int8_scan.cu", "maxsim.cu"} <= set(names)
 
 
 def test_key_is_stable_for_the_same_sources(csrc):
@@ -28,7 +28,8 @@ def test_key_is_stable_for_the_same_sources(csrc):
     assert len(_build.build_dir(csrc).name) == 16
 
 
-@pytest.mark.parametrize("source", ["flat_scan.cu", "adaptive_scan.cu"])
+@pytest.mark.parametrize("source", ["flat_scan.cu", "adaptive_scan.cu", "int8_scan.cu",
+                                    "maxsim.cu"])
 def test_key_changes_when_any_source_changes(csrc, source):
     before = _build.build_dir(csrc)
     path = csrc / source

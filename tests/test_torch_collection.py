@@ -119,9 +119,9 @@ def test_unported_features_raise():
         tvt.Collection(dimensions=4, mesh=object(), device="cpu")
     col = tvt.Collection(dimensions=4, device="cpu")
     with pytest.raises(errors.InvalidIndex, match="not ported"):
-        col.multi_vector_search([[1.0, 0.0, 0.0, 0.0]])
-    with pytest.raises(errors.InvalidFlatOptions, match="not ported"):
-        TFlat("cosine", storage="int8", device="cpu")
+        col.hybrid_search([1.0, 0.0, 0.0, 0.0])
+    with pytest.raises(errors.InvalidFlatOptions, match="unknown storage"):
+        TFlat("cosine", storage="int4", device="cpu")
 
 
 def test_cuda_default_never_falls_back_to_cpu(monkeypatch):

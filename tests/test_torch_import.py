@@ -16,6 +16,7 @@ PORT_MODULES = (
     "vettore_tpu_torch.observability",
     "vettore_tpu_torch.ops.distance",
     "vettore_tpu_torch.ops.flat_scan",
+    "vettore_tpu_torch.ops.maxsim",
     "vettore_tpu_torch.ops.packing",
     "vettore_tpu_torch.ops.pipeline",
     "vettore_tpu_torch.ops.scan_host",
@@ -46,7 +47,9 @@ def test_port_module_imports_without_jax(module):
 def test_import_builds_nothing():
     out = _run(
         "import vettore_tpu_torch, vettore_tpu_torch.ops.flat_scan as fs\n"
+        "import vettore_tpu_torch.ops.maxsim as ms\n"
         "from vettore_tpu_torch import _build\n"
-        "print(_build._lib is None, _build.build_dir().name, sum(fs.LAUNCHES.values()))\n")
+        "print(_build._lib is None, _build.build_dir().name,\n"
+        "      sum(fs.LAUNCHES.values()) + sum(ms.LAUNCHES.values()))\n")
     lib_unloaded, digest, launches = out.split()
     assert lib_unloaded == "True" and len(digest) == 16 and launches == "0"

@@ -270,3 +270,217 @@ def test_adaptive_kernels_refuse_wrong_operands(cuda):
     with pytest.raises(ValueError, match="16 bytes"):
         fs.extract_group_rows(mat[:, :, :3].contiguous(),
                               torch.zeros((4, 2), dtype=torch.int32, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# K3 int8_gmin_scan, K4 int8_rescore and the MaxSim rank scan. Ragged on
+# purpose: int8 widths off 4 bytes, token counts T = 1, 3 and 32, caps off
+# the TPU's 128-doc tile, query counts off the kernels' tiles. Tolerances:
+# K3 bit-equal; K4 1e-5 * max(1, |rank|); the MaxSim ranks 1e-5 * max(1,
+# |rank|) for f32 blocks and 1e-4 * max(1, |rank|) for bf16 blocks;
+# searches the same slots, and raws or scores within 1e-5 * max(1, |x|).
+# ---------------------------------------------------------------------------
+
+INT8_SHAPES = ((4096, 96, 70), (2048, 77, 130), (1024, 6, 3))  # (n, d, b)
+
+
+def _int8_operands(n, d, b, device, seed=0):
+    x, xsq, bias, q = _operands(n, d, b, "f32", device, seed=seed)
+    x8, scale = fs.quantize_rows(x)
+    q8, qscale = fs.quantize_rows(q)
+    return x8, scale, xsq, bias, q, q8, qscale, (q * q).sum(dim=1)
+
+
+def _assert_rel_close(got, want, tol):
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin])
+    err = (got[fin] - want[fin]).abs() / want[fin].abs().clamp_min(1.0)
+    assert err.max().item() <= tol
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+@pytest.mark.parametrize("metric", fs.FUSED_METRICS)
+def test_int8_gmin_scan_kernel_is_bit_equal(cuda, metric, shape):
+    x8, scale, xsq, bias, _q, q8, qscale, qsq = _int8_operands(*shape, cuda)
+    before = fs.LAUNCHES["int8_gmin_scan"]
+    gmin, bounded = fs.int8_gmin_scan(x8, scale, xsq, bias, q8, qscale, qsq, metric=metric)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["int8_gmin_scan"] == before + 1 and bool(bounded)
+    assert torch.equal(gmin, fs._int8_gmin_scan_ref(x8, scale, xsq, bias, q8, qscale, qsq,
+                                                    metric=metric))
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+@pytest.mark.parametrize("metric", fs.FUSED_METRICS)
+def test_int8_rescore_kernel_matches_plain(cuda, metric, shape):
+    x8, scale, xsq, bias, q, *_ = _int8_operands(*shape, cuda, seed=1)
+    ng = shape[0] // fs.GROUP
+    gidx = torch.randint(0, ng, (shape[2], min(12, ng)), dtype=torch.int32, device=cuda)
+    gidx[0, 0] = ng + 3  # out of range: clamped by both versions
+    before = fs.LAUNCHES["int8_rescore"]
+    out = fs.int8_rescore(x8, scale, xsq, bias, q, gidx, metric=metric)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["int8_rescore"] == before + 1
+    want = fs._int8_rescore_ref(x8, scale, xsq, bias, q, gidx.clamp(0, ng - 1), metric=metric)
+    _assert_rel_close(out, want, 1e-5)
+
+
+def test_int8_gmin_scan_kernel_reads_unaligned_rows(cuda):
+    x8, scale, xsq, bias, _q, q8, qscale, qsq = _int8_operands(1088, 128, 5, cuda, seed=2)
+    off = x8.flatten()[1:1 + 1024 * 127].view(1024, 127)
+    assert off.data_ptr() % 4
+    qo = q8[:, :127].contiguous()
+    args = (off, scale[:1024].contiguous(), xsq[:1024].contiguous(),
+            bias[:1024].contiguous(), qo, qscale, qsq)
+    got, _ = fs.int8_gmin_scan(*args, metric="l2")
+    assert torch.equal(got, fs._int8_gmin_scan_ref(*args, metric="l2"))
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2", "inner_product"])
+def test_int8_index_on_card_matches_cpu(cuda, metric):
+    from vettore_tpu_torch.index.flat import FlatIndex
+
+    rng = np.random.default_rng(3)
+    data = rng.normal(size=(5000, 100)).astype(np.float32)
+    ids = [f"d{i:05d}" for i in rng.permutation(5000)]
+    queries = data[:40] + 0.2 * rng.normal(size=(40, 100)).astype(np.float32)
+    got, want = (FlatIndex(metric, storage="int8", device=dev) for dev in (cuda, "cpu"))
+    for index in (got, want):
+        index.put_matrix(ids, data)
+    before = dict(fs.LAUNCHES)
+    hits = got.search_batch(queries, 10)
+    assert fs.LAUNCHES["int8_gmin_scan"] > before["int8_gmin_scan"]
+    assert fs.LAUNCHES["int8_rescore"] > before["int8_rescore"]
+    assert [[h[0] for h in row] for row in hits] == [
+        [h[0] for h in row] for row in want.search_batch(queries, 10)]
+    assert got.host_routes == 0
+
+
+MV_SHAPES = ((192, 1, 96, 5, 4), (320, 3, 77, 7, 3), (640, 32, 128, 4, 4),
+             (100, 32, 128, 130, 1))  # (docs, T, d, query sets, tokens per set)
+
+
+def _mv_operands(n, t, d, b, nq, storage, device, seed=0, full=False):
+    """Rank-scan operands; ``full`` gives every doc all ``t`` tokens, else
+    random counts 0..t."""
+    rng = np.random.default_rng(seed)
+    # unit-scale rows (norms 0.5..2): inner products of order 1, so 1e-5
+    # measures the kernel and not the cancellation of large random sums
+    tokens = rng.standard_normal((n, t, d)).astype(np.float32)
+    tokens /= np.linalg.norm(tokens, axis=2, keepdims=True)
+    tokens *= rng.uniform(0.5, 2.0, (n, t, 1)).astype(np.float32)
+    counts = np.full(n, t, np.int32) if full else rng.integers(0, t + 1, n).astype(np.int32)
+    tokens[np.arange(t)[None, :] >= counts[:, None]] = 0.0
+    dbias = np.where(rng.random(n) < 0.05, np.inf, 0.0).astype(np.float32)
+    qt = rng.standard_normal((b * nq, d)).astype(np.float32)
+    qt /= np.linalg.norm(qt, axis=1, keepdims=True)
+    qt[-1] = 0.0  # a pad query token
+    qn = np.linalg.norm(qt, axis=1)
+    qinv = np.where(qn > 0, 1.0 / np.maximum(qn, 1e-38), 0.0).astype(np.float32)
+    tt = torch.from_numpy(tokens).to(device)
+    if storage == "bf16":
+        tt = tt.to(torch.bfloat16)
+    return (tt, torch.from_numpy(counts).to(device), torch.from_numpy(dbias).to(device),
+            torch.from_numpy(qt).to(device), torch.from_numpy(qinv).to(device))
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("shape", MV_SHAPES)
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", ["cosine", "inner_product", "negative_inner_product"])
+def test_maxsim_rank_scan_kernel_matches_plain(cuda, metric, storage, shape, masked):
+    from vettore_tpu_torch.ops import maxsim as ms
+
+    n, t, d, b, nq = shape
+    tokens, counts, dbias, qt, qinv = _mv_operands(n, t, d, b, nq, storage, cuda,
+                                                   full=not masked)
+    before = ms.LAUNCHES["maxsim_rank_scan"]
+    rank = ms.maxsim_rank_scan(tokens, counts, dbias, qt, qinv, b=b, metric=metric)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["maxsim_rank_scan"] == before + 1
+    qs = qt.to(torch.bfloat16).float() if storage == "bf16" else qt
+    want = ms._maxsim_rank_scan_ref(tokens, counts, dbias, qs, qinv, b=b, metric=metric)
+    _assert_rel_close(rank, want, 1e-5 if storage == "f32" else 1e-4)
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", ["cosine", "inner_product"])
+def test_fused_maxsim_on_card_matches_cpu(cuda, metric, storage, uniform):
+    from vettore_tpu_torch.ops import maxsim as ms
+
+    rng = np.random.default_rng(4)
+    n, t, d = 960, 8, 64
+    # config 5's geometry: unit doc centres plus token noise 0.3/sqrt(d)
+    centres = rng.standard_normal((n, 1, d))
+    centres /= np.linalg.norm(centres, axis=2, keepdims=True)
+    tokens = (centres + 0.3 / np.sqrt(d) * rng.standard_normal((n, t, d))).astype(np.float32)
+    counts = np.full(n, t, np.int32) if uniform else rng.integers(1, t + 1, n).astype(np.int32)
+    counts[900:] = 0
+    tokens[np.arange(t)[None, :] >= counts[:, None]] = 0.0
+    valid = np.arange(n) < 900
+    qtok = tokens[rng.integers(0, 900, 24), :4] + 0.1 / np.sqrt(d) * rng.standard_normal(
+        (24, 4, d))
+    qtok = qtok.astype(np.float32)
+    qmask = np.ones((24, 4), bool)
+    qmask[3, 2:] = False
+    qtok[~qmask] = 0.0
+    args = [torch.from_numpy(a) for a in (tokens, counts, valid, qtok, qmask)]
+    if storage == "bf16":
+        args[0] = args[0].to(torch.bfloat16)
+    got = ms.fused_maxsim_topk_batch(*(a.to(cuda) for a in args), metric=metric, limit=10)
+    want = ms.fused_maxsim_topk_batch(*args, metric=metric, limit=10)
+    assert bool(got[2].all()) and bool(want[2].all())
+    assert torch.equal(got[0].cpu(), want[0])
+    _assert_rel_close(got[1].cpu(), want[1], 1e-5)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "inner_product"])
+def test_single_set_search_on_card_launches_the_kernel(cuda, metric):
+    import vettore_tpu_torch as vt
+    from vettore_tpu_torch.ops import maxsim as ms
+
+    rng = np.random.default_rng(5)
+    records = [{"id": f"m{i:04d}", "vectors": rng.standard_normal((int(rng.integers(1, 6)), 48))
+                .astype(np.float32).tolist()} for i in range(300)]
+    query = rng.standard_normal((3, 48)).astype(np.float32).tolist()
+    got, want = (vt.Collection(name="mv", dimensions=48, metric=metric, device=dev)
+                 for dev in (cuda, "cpu"))
+    for col in (got, want):
+        col.put_many(records)
+    before = ms.LAUNCHES["maxsim_rank_scan"]
+    hits = got.multi_vector_search(query, limit=10)
+    assert ms.LAUNCHES["maxsim_rank_scan"] == before + 1
+    assert [r.id for r in hits] == [r.id for r in want.multi_vector_search(query, limit=10)]
+    assert got.host_routes == 0
+
+
+def test_new_kernels_refuse_wrong_operands(cuda):
+    from vettore_tpu_torch.ops import maxsim as ms
+
+    x8, scale, xsq, bias, q, q8, qscale, qsq = _int8_operands(1024, 32, 8, cuda)
+    with pytest.raises(TypeError, match="int8"):
+        fs.int8_gmin_scan(x8.float(), scale, xsq, bias, q8, qscale, qsq, metric="cosine")
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.int8_gmin_scan(x8.t().contiguous().t(), scale, xsq, bias, q8, qscale, qsq,
+                          metric="cosine")
+    with pytest.raises(ValueError, match="multiple"):
+        fs.int8_gmin_scan(x8[:1000], scale[:1000], xsq[:1000], bias[:1000], q8, qscale, qsq,
+                          metric="cosine")
+    with pytest.raises(TypeError, match="int32"):
+        fs.int8_rescore(x8, scale, xsq, bias, q, torch.zeros((8, 2), dtype=torch.int64,
+                                                             device=cuda), metric="cosine")
+    tokens, counts, dbias, qt, qinv = _mv_operands(128, 4, 32, 2, 2, "f32", cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ms.maxsim_rank_scan(tokens.half(), counts, dbias, qt, qinv, b=2, metric="cosine")
+    with pytest.raises(TypeError, match="int32"):
+        ms.maxsim_rank_scan(tokens, counts.long(), dbias, qt, qinv, b=2, metric="cosine")
+    with pytest.raises(ValueError, match="metric"):
+        ms.maxsim_rank_scan(tokens, counts, dbias, qt, qinv, b=2, metric="l2")
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.maxsim_rank_scan(tokens.transpose(0, 1).contiguous().transpose(0, 1), counts, dbias,
+                            qt, qinv, b=2, metric="cosine")
+    big = torch.zeros((ms.MAX_QUERY_TOKENS + 1, 32), device=cuda)
+    with pytest.raises(ValueError, match="exceed"):
+        ms.maxsim_rank_scan(tokens, counts, dbias, big, torch.zeros(big.shape[0], device=cuda),
+                            b=1, metric="cosine")

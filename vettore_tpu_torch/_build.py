@@ -99,6 +99,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     signatures = {
         "vt_gmin_scan": [p, i, p, p, p, p, p, i, i, i, i, p],
         "vt_rescore": [p, i, p, p, p, p, p, p, i, i, i, i, i, p],
+        "vt_int8_gmin_scan": [p, p, p, p, p, p, p, p, i, i, i, i, p],
+        "vt_int8_rescore": [p, p, p, p, p, p, p, p, i, i, i, i, i, p],
+        "vt_maxsim_rank_scan": [p, i, p, p, p, p, p, i, i, i, i, i, i, p],
         "vt_stage_gmin_scan": [p, i, p, p, p, p, p, p, i, i, i, i, i, p],
         "vt_sign_scan": [p, p, p, p, p, i, i, i, p],
         "vt_extract_group_rows": [p, p, p, i, i, i, i, p],

@@ -6,13 +6,15 @@ canonical record store lives on host; acceleration state (the flat index's
 vector block, the adaptive scan cache) lives on the collection's device and
 is always rebuildable from the store. Search modes:
 
-* ``search``           — exact flat scan
-* ``funnel_search``    — Matryoshka prefix staging + exact rerank
-* ``quantized_search`` — sign-bit Hamming candidates + exact rerank
+* ``search``              — exact flat scan
+* ``funnel_search``       — Matryoshka prefix staging + exact rerank
+* ``quantized_search``    — sign-bit Hamming candidates + exact rerank
+* ``multi_vector_search`` — ColBERT MaxSim late interaction over token sets
 
 Not ported yet: the HNSW and IVF indexes, mesh sharding, ``compressed=True``
-(it needs the columnar store), and the multi-vector and hybrid search modes.
-Asking for any of them raises with a message that says so.
+(it needs the columnar store), the hybrid search modes, and MUVERA
+candidate generation (``candidates=`` / ``muvera=`` of the multi-vector
+search). Asking for any of them raises with a message that says so.
 
 Option validation is strict (unknown/duplicate options rejected,
 collection.ex:1116-1157); score/distance semantics follow
@@ -42,6 +44,7 @@ from .metrics import (
 )
 from .observability import StatsRegistry, observed
 from .ops import flat_scan, scan_host
+from .ops import maxsim as maxsim_ops
 from .ops import pipeline as pipe
 from .ops.distance import NORMALIZATIONS, normalize_rows, validate_vector
 from .ops.packing import pack_signs_u32, pack_signs_u64_rows, words_for
@@ -53,9 +56,6 @@ _SCORE_MODES = ("raw", "similarity")
 
 #: search modes of the JAX package that this package does not have yet
 _NOT_PORTED_MODES = (
-    "put_tokens",
-    "multi_vector_search",
-    "multi_vector_search_batch",
     "hybrid_search",
     "hybrid_search_batch",
 )
@@ -98,14 +98,35 @@ def _default_candidates(candidates, limit):
 _ROW_TILE = 1024
 
 
+def _pow2_at_least(n: int, floor: int = 8) -> int:
+    return max(floor, 1 << max(0, math.ceil(math.log2(max(n, 1)))))
+
+
+def _mv_chunk(cap: int, b: int, qt: int, t: int) -> int:
+    """Doc-chunk size for the plain MaxSim scan: bounds the [B, chunk, Qt, T]
+    similarity block to ~512 MB f32 (the only large intermediate; the token
+    block itself stays resident)."""
+    budget = 512 * 1024 * 1024 // 4
+    chunk = max(budget // max(1, b * qt * t), 1)
+    chunk = max(1024, 1 << int(math.floor(math.log2(chunk))))
+    return min(cap, chunk)
+
+
 def _cap_at_least(n: int, floor: int = 8) -> int:
     """Scan-cache capacity: pow2 below one row tile, then the next tile
     multiple — <0.1% padded rows instead of up to 100% (the reference scans
     exactly n records, collection.ex:699-713). Equal to the flat index's
     capacity for the same count, so the cache can share its block."""
     if n <= _ROW_TILE:
-        return max(floor, 1 << max(0, math.ceil(math.log2(max(n, 1)))))
+        return _pow2_at_least(n, floor)
     return -(-n // _ROW_TILE) * _ROW_TILE
+
+
+def _has_tokens(vs) -> bool:
+    """True when a record carries a non-empty multi-vector token set —
+    either a list/tuple of rows (put/put_many) or a [t, d] ndarray
+    (put_tokens). Plain truthiness would raise on a multi-row ndarray."""
+    return vs is not None and len(vs) > 0
 
 
 def _prefix_xsq(x, *, dims):
@@ -146,6 +167,7 @@ class _VectorCache:
         self._host_mat = None
         self._signs = None
         self._stage_xsq = {}
+        self._mv = None
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -251,6 +273,83 @@ class _VectorCache:
                 out[without] = pack_signs_u32(sub)
         # int64, not uint32: torch has no shifts for uint32
         return torch.from_numpy(out.astype(np.int64))
+
+    def multi_vectors(self):
+        """``(tokens [cap, T, d], counts [cap] int32)`` on the device: each
+        record's ``vectors`` when non-empty, else its primary vector
+        (collection.ex:773-777), zero-padded to T = the next power of two of
+        the longest set. The block is bf16-resident when that is lossless
+        (``maxsim.put_token_block``)."""
+        if self._mv is not None:
+            return self._mv
+        d = self.dimensions
+        counts = np.zeros(self.cap, dtype=np.int32)
+        if all(not _has_tokens(r.vectors) for r in self.records):
+            # plain single-vector corpus: the token block IS the primary
+            # matrix, one stack instead of a per-record walk
+            tokens = np.zeros((self.cap, 1, d), dtype=np.float32)
+            has = np.array([r.vector is not None for r in self.records], dtype=bool)
+            if has.all() and self.n:
+                tokens[: self.n, 0] = self._stack_vectors()
+                counts[: self.n] = 1
+            else:
+                for i, r in enumerate(self.records):
+                    if r.vector is None:
+                        continue
+                    if len(r.vector) != d:
+                        raise E.DimensionMismatch("dimension mismatch")
+                    row = np.asarray(r.vector, dtype=np.float32)
+                    if not np.isfinite(row).all():
+                        raise E.InvalidMultiVector("invalid multi vector")
+                    tokens[i, 0] = row
+                    counts[i] = 1
+            return self._set_mv(tokens, counts)
+        first = self.records[0].vectors
+        if (
+            isinstance(first, np.ndarray)
+            and first.ndim == 2
+            and first.shape[1] == d
+            and all(isinstance(r.vectors, np.ndarray) and r.vectors.shape == first.shape
+                    for r in self.records)
+        ):
+            # bulk-ingested corpus (put_tokens): one [n*t, d] concatenate
+            # instead of a per-record walk
+            t = first.shape[0]
+            t_max = _pow2_at_least(t, 1)
+            tokens = np.zeros((self.cap, t_max, d), dtype=np.float32)
+            block = np.concatenate([r.vectors for r in self.records],
+                                   dtype=np.float32).reshape(self.n, t, d)
+            if not np.isfinite(block).all():
+                raise E.InvalidMultiVector("invalid multi vector")
+            tokens[: self.n, :t] = block
+            counts[: self.n] = t
+            return self._set_mv(tokens, counts)
+        docs = []
+        for r in self.records:
+            vs = r.vectors if _has_tokens(r.vectors) else (
+                [r.vector] if r.vector is not None else [])
+            if len(vs) == 0:
+                docs.append(np.zeros((0, d), dtype=np.float32))
+                continue
+            try:
+                rows = np.asarray(vs, dtype=np.float32)
+            except (TypeError, ValueError) as exc:
+                raise E.InvalidMultiVector("invalid multi vector") from exc
+            if rows.ndim != 2 or rows.shape[1] != d:
+                raise E.DimensionMismatch("dimension mismatch")
+            if not np.isfinite(rows).all():
+                raise E.InvalidMultiVector("invalid multi vector")
+            docs.append(rows)
+        t_max = _pow2_at_least(max((len(doc) for doc in docs), default=1), 1)
+        tokens = np.zeros((self.cap, t_max, d), dtype=np.float32)
+        for i, rows in enumerate(docs):
+            counts[i] = len(rows)
+            tokens[i, : len(rows)] = rows
+        return self._set_mv(tokens, counts)
+
+    def _set_mv(self, tokens: np.ndarray, counts: np.ndarray):
+        self._mv = (maxsim_ops.put_token_block(tokens, self.device), self._put(counts))
+        return self._mv
 
     def signs(self) -> torch.Tensor:
         """Device ±1 int8 sign block [cap, d] for the Hamming scan, expanded
@@ -654,6 +753,65 @@ class Collection:
             finally:
                 self._bump()
 
+    @observed("put_tokens")
+    def put_tokens(self, ids, tokens, *, values=None, metadata=None) -> None:
+        """Bulk multi-vector ingest from an [n, t, d] token block — the
+        million-document ColBERT path. Semantics match ``put_many`` with
+        ``vectors`` records (primary = normalized mean of the normalized
+        tokens, auto sign packing; collection.ex:1008-1017), as one
+        vectorized validate / normalize / mean / sign-pack. Stored
+        ``vectors`` are [t, d] f32 ndarrays (accepted everywhere a row list
+        is)."""
+        tokens = np.asarray(tokens)
+        if tokens.dtype.kind not in "iuf":
+            tokens = tokens.astype(np.float64)  # rejects non-numeric input
+        if tokens.ndim != 3 or tokens.shape[1] == 0:
+            raise E.InvalidMultiVector("tokens must be [n, t, d]")
+        if tokens.shape[2] != self.dimensions:
+            raise E.DimensionMismatch("dimension mismatch")
+        if len(ids) != tokens.shape[0]:
+            raise E.InvalidVector("ids and token row count differ")
+        if not np.isfinite(tokens).all() or (np.abs(tokens) > F32_MAX).any():
+            raise E.InvalidVector("vector contains a non-finite value")
+        ids = [str(i) for i in ids]
+        if any(not i for i in ids):
+            raise E.MissingId("embedding needs an id or a non-empty string value")
+        n, t, d = tokens.shape
+        normalized = normalize_rows(tokens.reshape(n * t, d), self.normalize).reshape(n, t, d)
+        # mean accumulated in f64 straight off the f32 block: byte parity
+        # with _prepare_batch_multi / _prepare_one
+        primary = normalize_rows(normalized.mean(axis=1, dtype=np.float64), self.normalize)
+        packed = pack_signs_u64_rows(primary)
+        prepared = [
+            Embedding(
+                id=id,
+                value=(values[i] if values is not None else id),
+                vector=primary[i],
+                vectors=normalized[i],
+                binary_vector=packed[i],
+                metadata=(metadata[i] if metadata is not None else None),
+            )
+            for i, id in enumerate(ids)
+        ]
+        with self._write_lock:
+            self.ensure_open()
+            self._store.put_many(prepared)
+            try:
+                index_bulk = getattr(self._index, "put_matrix", None)
+                if callable(index_bulk) and not any(
+                    i in getattr(self._index, "_slot_of", {}) for i in ids
+                ):
+                    index_bulk(ids, primary.astype(np.float32, copy=False))
+                else:
+                    self._index.put_many([(e.id, e.vector) for e in prepared])
+            except Exception:
+                for e in prepared:
+                    self._index.delete(e.id)
+                    self._store.delete(e.id)
+                raise
+            finally:
+                self._bump()
+
     def get(self, id: str) -> Embedding:
         if not isinstance(id, str):
             raise E.VettoreError("invalid id", reason="invalid_id")
@@ -751,6 +909,15 @@ class Collection:
     # ------------------------------------------------------------------
     # adaptive modes: funnel and quantized (collection.ex:244-295,660-713)
     # ------------------------------------------------------------------
+
+    def _prepare_query_vectors(self, query_vectors) -> np.ndarray:
+        if not isinstance(query_vectors, (list, tuple)) or not query_vectors:
+            raise E.InvalidMultiVector("invalid multi vector")
+        rows = []
+        for v in query_vectors:
+            self._validate_dims(v)
+            rows.append(normalize_rows(np.asarray(v, np.float64)[None, :], self.normalize)[0])
+        return np.stack(rows)
 
     def _prepare_query_batch(self, queries) -> np.ndarray:
         self.ensure_open()
@@ -974,6 +1141,132 @@ class Collection:
         return [self._to_result(cache.by_id[id], raw) for id, raw in final]
 
     # ------------------------------------------------------------------
+    # multi-vector MaxSim (collection.ex:311-323,742-760)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _refuse_muvera(candidates, muvera):
+        if candidates is not None or muvera is not None:
+            raise E.InvalidIndex("MUVERA candidate generation (candidates=, muvera=) is not "
+                                 "ported yet")
+
+    @observed("multi_vector_search")
+    def multi_vector_search(self, query_vectors, *, limit=10, metric=None,
+                            candidates=None, muvera=None, **extra) -> list:
+        """ColBERT MaxSim late interaction over multi-vector records
+        (collection.ex:311-323,742-760): each query vector takes its best
+        token similarity in a record, and the record's score is the sum.
+        Records without ``vectors`` score through their primary vector.
+
+        >>> import vettore_tpu_torch as vt
+        >>> col = vt.Collection(name="doc-mv", dimensions=2, metric="cosine",
+        ...                     device="cpu")
+        >>> col.put_many([
+        ...     {"id": "a", "vectors": [[1.0, 0.0], [0.9, 0.1]]},
+        ...     {"id": "b", "vectors": [[0.0, 1.0]]},
+        ... ])
+        >>> res = col.multi_vector_search([[1.0, 0.0]], limit=2)
+        >>> [r.id for r in res]
+        ['a', 'b']
+        >>> round(res[0].score, 2)  # best token similarity, summed
+        1.0
+        """
+        _reject_extra(extra)
+        _validate_limit(limit)
+        metric = normalize_metric(metric) if metric is not None else self.metric
+        if metric not in METRICS:
+            raise E.InvalidMetric(f"invalid metric: {metric!r}")
+        self.ensure_open()
+        self._prepare_query_vectors(query_vectors)
+        self._refuse_muvera(candidates, muvera)
+        # a batch of one: the same device scan (the MaxSim kernel for the
+        # dot metrics) as multi_vector_search_batch
+        return self._multi_vector_scan([query_vectors], limit=limit, metric=metric)[0]
+
+    def _multi_vector_host(self, cache, queries, metric, limit):
+        """The float64 host MaxSim (multi_vector.rs), for queries whose
+        device scores overflowed f32."""
+        self.host_routes += 1
+        documents = []
+        for r in cache.records:
+            vs = r.vectors if _has_tokens(r.vectors) else [r.vector]
+            documents.append((r.id, [list(np.asarray(v, np.float64)) for v in vs]))
+        hits = maxsim_ops.top_k(documents, [list(q) for q in queries], metric, limit)
+        return [
+            Result(id=id, value=cache.by_id[id].value, score=score, distance=None,
+                   metric=metric, metadata=cache.by_id[id].metadata)
+            for id, score in hits
+        ]
+
+    def _pad_query_sets(self, query_sets):
+        """Prepares a batch of ragged query token sets: ``(qtok [B, Qmax, d]
+        f32, qmask [B, Qmax] bool)`` with Qmax the next power of two of the
+        longest set."""
+        per = [self._prepare_query_vectors(qs) for qs in query_sets]
+        qmax = _pow2_at_least(max(p.shape[0] for p in per), 1)
+        qtok = np.zeros((len(per), qmax, self.dimensions), np.float32)
+        qmask = np.zeros((len(per), qmax), bool)
+        for i, p in enumerate(per):
+            qtok[i, : p.shape[0]] = p
+            qmask[i, : p.shape[0]] = True
+        return qtok, qmask
+
+    def _mv_slots_to_results(self, cache, slots, scores, metric) -> list:
+        return [
+            Result(id=cache.records[int(slot)].id, value=cache.records[int(slot)].value,
+                   score=float(score), distance=None, metric=metric,
+                   metadata=cache.records[int(slot)].metadata)
+            for slot, score in zip(slots, scores) if slot >= 0 and np.isfinite(score)
+        ]
+
+    @observed("multi_vector_search_batch")
+    def multi_vector_search_batch(self, query_sets, *, limit=10, metric=None,
+                                  candidates=None, muvera=None, **extra) -> list:
+        """Batched ColBERT MaxSim over the full corpus: one query token set
+        per batch element (ragged ok), one device scan for the whole batch.
+        Dot-family metrics run the fused MaxSim kernel
+        (``ops/maxsim.fused_maxsim_topk_batch``); the other metrics the
+        chunked plain scan (``maxsim_full_topk_batch``)."""
+        _reject_extra(extra)
+        _validate_limit(limit)
+        metric = normalize_metric(metric) if metric is not None else self.metric
+        if metric not in METRICS:
+            raise E.InvalidMetric(f"invalid metric: {metric!r}")
+        self._refuse_muvera(candidates, muvera)
+        self.ensure_open()
+        if not isinstance(query_sets, (list, tuple)):
+            raise E.InvalidMultiVector("invalid multi vector")
+        if len(query_sets) == 0:
+            return []
+        return self._multi_vector_scan(query_sets, limit=limit, metric=metric)
+
+    def _multi_vector_scan(self, query_sets, *, limit, metric) -> list:
+        """One device MaxSim scan of every doc for a non-empty batch of query
+        token sets: the fused kernel path for the dot metrics, the chunked
+        plain scan for the others; a set whose scores overflowed f32 takes
+        the float64 host path."""
+        qtok, qmask = self._pad_query_sets(query_sets)
+        cache = self._scan_cache()
+        if cache.n == 0:
+            return [[] for _ in query_sets]
+        tokens, counts = cache.multi_vectors()
+        valid = cache.valid_mask()
+        k = min(limit, cache.n)
+        qtok_t = self._query_tensor(qtok)
+        qmask_t = torch.from_numpy(qmask).to(self.device)
+        if maxsim_ops.supports_fused(metric, cache.cap, qtok.shape[1]):
+            out = maxsim_ops.fused_maxsim_topk_batch(
+                tokens, counts, valid, qtok_t, qmask_t, metric=metric, limit=k)
+        else:
+            out = maxsim_ops.maxsim_full_topk_batch(
+                tokens, counts, valid, qtok_t, qmask_t, metric=metric, limit=k,
+                chunk=_mv_chunk(cache.cap, qtok.shape[0], qtok.shape[1], tokens.shape[1]))
+        slots, scores, ok = (t.cpu().numpy() for t in out)
+        return [self._mv_slots_to_results(cache, slots[b], scores[b], metric) if ok[b]
+                else self._multi_vector_host(cache, qtok[b][qmask[b]], metric, limit)
+                for b in range(len(query_sets))]
+
+    # ------------------------------------------------------------------
     # snapshot / restore (collection.ex:135-164,376-433)
     # ------------------------------------------------------------------
 
@@ -992,7 +1285,7 @@ class Collection:
 
 def _not_ported(mode: str):
     def method(self, *args, **kwargs):
-        raise E.InvalidIndex(f"{mode} is not ported yet (only exact flat search is)")
+        raise E.InvalidIndex(f"{mode} is not ported yet")
 
     method.__name__ = mode
     return method

@@ -10,7 +10,11 @@ array is recognised by its dtype's name and widened bit for bit.
 * :func:`flat_index_from_numpy` — a :class:`FlatIndex` rebuilt from a JAX
   ``FlatIndex``'s host mirror with its slot layout unchanged;
 * :func:`scan_cache_state` — a JAX ``_VectorCache``'s device arrays (the
-  operands of the funnel and quantized pipelines) as this package's tensors.
+  operands of the funnel and quantized pipelines) as this package's tensors;
+* :func:`int8_device_state` — a JAX int8 ``storage_view``'s quantized block
+  and scales (the operands of ``fused_int8_search``);
+* :func:`token_block_state` — a JAX ``_VectorCache``'s multi-vector token
+  block (the operands of the MaxSim search, ``ops/maxsim.py``).
 
 Snapshots need no conversion: both packages write and read the same file
 format (``store/snapshot.py``).
@@ -40,7 +44,7 @@ def _as_f32(a) -> np.ndarray:
 
 
 def _block(x) -> torch.Tensor:
-    """An ``[N, d]`` f32 or bf16 array as a tensor of the same dtype."""
+    """An f32 or bf16 array as a tensor of the same dtype."""
     x = np.asarray(x)
     if _is_bf16(x):
         return torch.from_numpy(np.array(x).view(np.int16)).view(torch.bfloat16)
@@ -118,3 +122,31 @@ def scan_cache_state(x, valid, bits, signs, stage_xsq, *, device):
         raise DimensionMismatch(f"signs have {signs_t.shape[1]} columns, x has {x_t.shape[1]}")
     return tuple(None if t is None else t.to(dev)
                  for t in (x_t, valid_t, bits_t, signs_t, xsq_t))
+
+
+def int8_device_state(x8, scale, *, device):
+    """``(x8, scale)`` tensors on ``device`` from a JAX int8 view (its
+    ``_device[0]`` block and ``_int8_scale``): ``x8`` ``[N, d]`` int8 and
+    ``scale`` ``[N]`` (or ``[N, 1]``) f32 dequant factors, bit for bit."""
+    dev = resolve_device(device)
+    x8_t = torch.from_numpy(np.array(x8, dtype=np.int8))
+    scale_t = torch.from_numpy(_as_f32(scale).reshape(-1))
+    if x8_t.ndim != 2 or scale_t.shape[0] != x8_t.shape[0]:
+        raise DimensionMismatch(f"scale has {scale_t.shape[0]} rows, x8 has {x8_t.shape[0]}")
+    return x8_t.to(dev), scale_t.to(dev)
+
+
+def token_block_state(tokens, counts, *, device):
+    """``(tokens, counts)`` on ``device`` from a JAX ``_VectorCache``'s
+    ``multi_vectors()``: ``tokens`` ``[cap, T, d]`` f32 or bf16 (kept in its
+    dtype: the storage dtype decides the MaxSim kernel's input and selection
+    precision), ``counts`` ``[cap]`` int32 live tokens per doc, each in
+    ``[0, T]``."""
+    dev = resolve_device(device)
+    tok_t = _block(tokens)
+    counts_t = torch.from_numpy(np.array(counts, dtype=np.int32).reshape(-1))
+    if tok_t.ndim != 3 or counts_t.shape[0] != tok_t.shape[0]:
+        raise DimensionMismatch(f"counts has {counts_t.shape[0]} rows, tokens {tuple(tok_t.shape)}")
+    if ((counts_t < 0) | (counts_t > tok_t.shape[1])).any():
+        raise InvalidVector(f"token counts must lie in [0, {tok_t.shape[1]}]")
+    return tok_t.to(dev), counts_t.to(dev)

@@ -1,11 +1,12 @@
 """Exact flat index: device-resident vector block + fused scan/top-k.
 
 The port of ``vettore_tpu/index/flat.py``: vectors live in one device
-``[cap, d]`` block (f32 or bf16) with a validity mask; a search is one
-batched scan — the fused group-min kernels (``ops/flat_scan.py``) at
-capacities of 1024 rows and more for the matmul metrics, a plain PyTorch
-scan otherwise — with the reference's (rank, id) tie-break (flat.rs:34-40)
-via a host-maintained lexicographic slot permutation.
+``[cap, d]`` block (f32, bf16, or int8 with per-row f32 scales) with a
+validity mask; a search is one batched scan — the fused group-min kernels
+(``ops/flat_scan.py``) at capacities of 1024 rows and more for the matmul
+metrics, a plain PyTorch scan otherwise — with the reference's (rank, id)
+tie-break (flat.rs:34-40) via a host-maintained lexicographic slot
+permutation.
 
 Mutations update a host mirror (the index stays rebuildable and cheap to
 mutate); the device copy refreshes lazily on the next search. The device is
@@ -35,7 +36,7 @@ from .base import Index
 
 _MIN_CAP = 8
 _ROW_TILE = 1024
-_STORAGES = ("f32", "bf16")
+_STORAGES = ("f32", "bf16", "int8")
 
 
 def _cap_for(needed: int) -> int:
@@ -61,8 +62,6 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_storage(storage: str) -> None:
-    if storage == "int8":
-        raise InvalidFlatOptions("int8 storage is not ported yet")
     if storage not in _STORAGES:
         raise InvalidFlatOptions(f"unknown storage mode: {storage!r}")
 
@@ -74,11 +73,15 @@ def round_bf16(a: np.ndarray) -> np.ndarray:
     return t.to(torch.bfloat16).float().numpy()
 
 
-def _search_kernel(x, valid, lex_order, q, *, metric, limit):
+def _search_kernel(x, valid, lex_order, q, scale=None, *, metric, limit):
     """The plain scan for small blocks and non-fused metrics: raw scores of
-    every row, rank, top-``limit`` with the lex tie-break. ``q`` [B, d].
+    every row, rank, top-``limit`` with the lex tie-break. ``q`` [B, d];
+    ``scale`` [N] dequantizes an int8 block (every metric and limit stays
+    servable on int8 storage, as flat.rs:96-124 serves every metric).
     Returns (slots [B, limit], raws [B, limit], ranks [B, limit],
     all_finite [B])."""
+    if scale is not None:
+        x = x.float() * scale[:, None]
     raw = batched_raw_scores(x, q, metric=metric)
     rank = rank_from_raw(raw, metric=metric)
     rank = torch.where(valid[None, :], rank, torch.full_like(rank, float("inf")))
@@ -118,8 +121,13 @@ class FlatIndex(Index):
         #: "bf16" stores the device block in bfloat16: half the device
         #: memory, the K1 scan multiplies bf16 values, raw values approximate
         #: to ~1e-2. The host mirror then holds bf16-rounded values, so every
-        #: consumer sees exactly the values the device block scores.
+        #: consumer sees exactly the values the device block scores. "int8"
+        #: stores per-row symmetric-quantized values and f32 scales: a
+        #: quarter of the device memory, the K3 scan, raw values from the
+        #: dequantized rows (~1e-2..1e-1). Its host mirror stays f32, the
+        #: dequant reference.
         self.storage = storage
+        self._int8_scale = None
         self.device = resolve_device(device)
         self.metric = metric
         self._dim: int | None = None
@@ -319,7 +327,18 @@ class FlatIndex(Index):
         view._free = self._free
         self._sync_device()
         x, valid, lex_order = self._device
-        x = x.to(torch.bfloat16 if storage == "bf16" else torch.float32)
+        if storage == "int8":
+            if x.dtype == torch.int8:
+                view._int8_scale = self._int8_scale
+            else:
+                x, view._int8_scale = flat_scan.quantize_rows(x)
+        elif x.dtype == torch.int8:
+            # a widening view cannot recover precision from the quantized
+            # block: it rebuilds from the f32 host mirror
+            view._dirty = True
+            return view
+        else:
+            x = x.to(torch.bfloat16 if storage == "bf16" else torch.float32)
         view._device = (x, valid, lex_order)
         view._device_scan = self._device_scan
         view._dirty = False
@@ -345,6 +364,8 @@ class FlatIndex(Index):
         device_x = put(self._host_x)
         if self.storage == "bf16":
             device_x = device_x.to(torch.bfloat16)
+        elif self.storage == "int8":
+            device_x, self._int8_scale = flat_scan.quantize_rows(device_x)
         self._device = (device_x, put(self._valid), put(lex_order))
         self._device_scan = (put(xsq), put(bias), put(lex_rank))
         self._dirty = False
@@ -362,11 +383,17 @@ class FlatIndex(Index):
         x, valid, lex_order = self._device
         if self._fused_eligible(k):
             xsq, bias, lex_rank = self._device_scan
-            slots, raws, _ranks, ok = flat_scan.fused_flat_search(
-                x, xsq, bias, lex_rank, queries_device, metric=self.metric, k=k)
+            if self.storage == "int8":
+                slots, raws, _ranks, ok = flat_scan.fused_int8_search(
+                    x, self._int8_scale, xsq, bias, lex_rank, queries_device,
+                    metric=self.metric, k=k)
+            else:
+                slots, raws, _ranks, ok = flat_scan.fused_flat_search(
+                    x, xsq, bias, lex_rank, queries_device, metric=self.metric, k=k)
             return slots, raws, ok.expand(queries_device.shape[0])
+        # _int8_scale is None unless the block is int8
         slots, raws, _ranks, ok = _search_kernel(x, valid, lex_order, queries_device,
-                                                 metric=self.metric, limit=k)
+                                                 self._int8_scale, metric=self.metric, limit=k)
         return slots, raws, ok
 
     def _query_block(self, qs: np.ndarray) -> torch.Tensor:

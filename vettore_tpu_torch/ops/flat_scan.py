@@ -31,7 +31,16 @@ The adaptive pipelines (``ops/pipeline.py``) run three more kernels
   int8 sign rows, their 64-row group minima and the ``[B, N]`` int16
   Hamming matrix, in one pass;
 * **K7** ``extract_group_rows`` — the gather of selected 64-wide group rows
-  out of K5's or K6's ``[B, N]`` matrix.
+  out of K5's or K6's ``[B, N]`` matrix (and of the MaxSim rank matrix,
+  ``ops/maxsim.py``).
+
+``fused_int8_search`` (``FlatIndex`` int8 storage) runs two more
+(``csrc/int8_scan.cu``):
+
+* **K3** ``int8_gmin_scan`` — int8 x int8 exact int32 dots, dequantized by
+  the row and query scales, the K1 rank and its 64-row group minima;
+* **K4** ``int8_rescore`` — the selected groups' int8 rows against the full
+  f32 query, dequantized after the sum.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors; any other device raises. Each keeps a launch
@@ -72,8 +81,8 @@ _SAFE_LIM = 4e37
 _SAFE_LOG = 86.0  # log(2.2e37) >= log(|dot|) bound via Cauchy-Schwarz
 
 #: kernel launch counts, by kernel name
-LAUNCHES = {"gmin_scan": 0, "rescore": 0, "stage_gmin_scan": 0, "sign_scan": 0,
-            "extract_group_rows": 0}
+LAUNCHES = {"gmin_scan": 0, "rescore": 0, "int8_gmin_scan": 0, "int8_rescore": 0,
+            "stage_gmin_scan": 0, "sign_scan": 0, "extract_group_rows": 0}
 
 
 def supports(metric: str, cap: int, k: int) -> bool:
@@ -250,19 +259,26 @@ def fused_flat_search(x, xsq, bias, lex_rank, q, *, metric, k):
     False means the batch failed the overflow-safety norm bound or a tie
     spill — caller must re-run on the host oracle.
     """
-    n = x.shape[0]
-    b = q.shape[0]
     gmin, bounded = gmin_scan(x, xsq, bias, q, metric=metric)
-    ng = n // GROUP
-    gsel = min(k + GROUP_SLACK, ng)
+    gsel = min(k + GROUP_SLACK, x.shape[0] // GROUP)
     # tie spill check at the K boundary: every group with min <= m_k must be
     # selected (GROUP_SLACK absorbs up to 8 tied groups past it)
     _gtop, gidx, g_ok = select.group_topk(gmin, gsel, check_c=k)
-    spill_ok = g_ok.all()
+    cand = rescore(x, xsq, bias, q, gidx.int(), metric=metric)
+    slot_s, rank_s, tie_ok = _select_winners(cand, gidx, lex_rank, k)
+    top_slot, raw, top_rank = _finalize(x, q, slot_s, rank_s, metric=metric)
+    return top_slot, raw, top_rank, bounded & g_ok.all() & tie_ok
 
-    cand = rescore(x, xsq, bias, q, gidx.int(), metric=metric).reshape(b, gsel * GROUP)
+
+def _select_winners(cand, gidx, lex_rank, k):
+    """The ``k`` best of the rescored groups ``cand`` [B, gsel, 64] in
+    (rank, lex id) order: ``(slots [B, k], ranks [B, k], tie_ok)``. The
+    ``k + TIE_PAD`` best by rank are sorted by (rank, lex); a rank tie that
+    crosses the pad boundary means lex-smaller ids may sit outside the pad,
+    which is not provably exact, so ``tie_ok`` (0-dim bool) goes False."""
+    b, gsel, _ = cand.shape
+    cand = cand.reshape(b, gsel * GROUP)
     cand_slots = _group_rows(gidx).reshape(b, gsel * GROUP)
-
     sel = min(k + TIE_PAD, gsel * GROUP)
     sel_rank, pos = smallest(cand, sel)
     sel_slots = cand_slots.gather(1, pos)
@@ -271,12 +287,9 @@ def fused_flat_search(x, xsq, bias, lex_rank, q, *, metric, k):
     order = lex_sort(sel_rank, sel_lex)
     rank_s = sel_rank.gather(1, order)
     slot_s = sel_slots.gather(1, order)
-    # a rank tie crossing the pad boundary means lex-smaller ids may sit
-    # outside the selected pad — not provably exact, flag it
     tie_ok = ((rank_s[:, k - 1] < sel_rank[:, sel - 1])
               | ~torch.isfinite(sel_rank[:, sel - 1])).all()
-    top_slot, raw, top_rank = _finalize(x, q, slot_s[:, :k], rank_s[:, :k], metric=metric)
-    return top_slot, raw, top_rank, bounded & spill_ok & tie_ok
+    return slot_s[:, :k], rank_s[:, :k], tie_ok
 
 
 def _finalize(x, q, top_slot, top_rank, *, metric):
@@ -299,6 +312,202 @@ def _finalize(x, q, top_slot, top_rank, *, metric):
         if metric == "cosine":
             top_rank = 1.0 + top_rank  # rank key was -dot
     return top_slot, raw, top_rank
+
+
+# ---------------------------------------------------------------------------
+# int8 storage: K3 int8_gmin_scan, K4 int8_rescore, fused_int8_search
+# ---------------------------------------------------------------------------
+
+#: widest d-chunk whose int8 dot an f32 GEMM sums exactly: every partial
+#: sum is an integer of magnitude <= 1040 * 127**2 < 2**24
+_EXACT_I8_CHUNK = 1040
+
+
+def quantize_rows(x):
+    """Per-row symmetric int8 quantization: ``(x8 [N, d] int8, scale [N]
+    f32)`` with ``scale = max(max |row|, 1e-30) * f32(1/127)`` and ``x8 =
+    clip(round(x / scale), -127, 127)``, rounding half to even. The same
+    f32 arithmetic as the JAX package's ``_quantize_int8`` and its query
+    quantization in ``fused_int8_search`` (XLA turns their division by the
+    constant 127 into a product with its f32 reciprocal), so both give the
+    same bits."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=1).clamp_min(1e-30) * (1.0 / 127.0)
+    x8 = torch.round(xf / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return x8, scale
+
+
+def int8_dots(q8, x8):
+    """``[B, N]`` f32 values of the exact int32 dots ``q8 . x8``. An f32 GEMM
+    of widened int8 values is exact per d-chunk of at most 1040 columns
+    (also with TF32 inputs, which hold 8-bit integers exactly); wider rows
+    sum their chunks in int64. ``torch.matmul`` takes no integer tensors on
+    CUDA."""
+    d = x8.shape[1]
+    if d <= _EXACT_I8_CHUNK:
+        return q8.float() @ x8.float().T
+    acc = 0
+    for s in range(0, d, _EXACT_I8_CHUNK):
+        part = q8[:, s:s + _EXACT_I8_CHUNK].float() @ x8[:, s:s + _EXACT_I8_CHUNK].float().T
+        acc = acc + part.to(torch.int64)
+    return acc.float()
+
+
+def _check_int8_operands(x8, scale, xsq, bias, q, q_dtype):
+    n, d = x8.shape
+    if x8.dtype != torch.int8:
+        raise TypeError(f"x8 must be int8, got {x8.dtype}")
+    if n % GROUP:
+        raise ValueError(f"row count {n} is not a multiple of {GROUP}")
+    if q.dim() != 2 or q.shape[1] != d:
+        raise ValueError(f"queries {tuple(q.shape)} do not have {d} columns")
+    if q.dtype != q_dtype:
+        raise TypeError(f"queries must be {q_dtype}, got {q.dtype}")
+    for name, t in (("scale", scale), ("xsq", xsq), ("bias", bias)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,):
+            raise TypeError(f"{name} must be float32 of shape {(n,)}")
+    for t in (scale, xsq, bias, q):
+        if t.device != x8.device:
+            raise ValueError(f"operands on {t.device} and {x8.device}")
+
+
+def _int8_bounded(scale, xsq, qscale, qsq, d):
+    """Overflow proof of the int8 scan: ``|approx| <= d * 127**2 * scale *
+    qscale`` exactly, so every rank is finite when that product and the
+    norm terms sit under the per-term cap. 0-dim bool tensor."""
+    amax = (torch.tensor(float(d * 127 * 127), dtype=torch.float32, device=scale.device)
+            * scale.max() * qscale.abs().max())
+    return ((amax < _SAFE_LIM) & (xsq.max() < _SAFE_LIM) & (qsq < _SAFE_LIM)).all()
+
+
+def _int8_gmin_scan_ref(x8, scale, xsq, bias, q8, qscale, qsq, *, metric):
+    """Plain PyTorch version of K3: ``[B, N/64]`` group minima of
+    ``rank((q8 . x8) * scale * qscale) + bias``, in the JAX body's order of
+    f32 operations (``flat_scan.py::_int8_gmin_body``)."""
+    n = x8.shape[0]
+    b = q8.shape[0]
+    approx = int8_dots(q8, x8) * scale[None, :] * qscale[:, None]
+    rank = _rank(approx, xsq[None, :], qsq[:, None], metric) + bias[None, :]
+    return rank.reshape(b, n // GROUP, GROUP).amin(dim=-1)
+
+
+def int8_gmin_scan(x8, scale, xsq, bias, q8, qscale, qsq, *, metric):
+    """Group minima of the quantized rank matrix: ``([B, N/64] f32,
+    bounded)``.
+
+    ``x8`` [N, d] int8 with dequant ``scale`` [N] f32, ``xsq`` [N] f32 TRUE
+    squared norms (the l2 expansion keeps them; only the cross term is
+    quantized), ``bias`` [N] f32, ``q8`` [B, d] int8 with ``qscale`` [B]
+    and ``qsq`` [B] f32 (from the f32 queries). The int32 dot is exact, so
+    the kernel and its plain version agree bit for bit."""
+    _check_int8_operands(x8, scale, xsq, bias, q8, torch.int8)
+    b, d = q8.shape
+    for name, t in (("qscale", qscale), ("qsq", qsq)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b,) or t.device != x8.device:
+            raise TypeError(f"{name} must be float32 of shape {(b,)} on {x8.device}")
+    bounded = _int8_bounded(scale, xsq, qscale, qsq, d)
+    if x8.device.type == "cpu":
+        return _int8_gmin_scan_ref(x8, scale, xsq, bias, q8, qscale, qsq,
+                                   metric=metric), bounded
+    if not x8.is_cuda:
+        raise ValueError(f"int8_gmin_scan runs on cuda or cpu tensors, not {x8.device}")
+    from .. import _build
+
+    ops = (x8, scale, xsq, bias, q8, qscale, qsq)
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("kernel operands must be contiguous")
+    n = x8.shape[0]
+    gmin = torch.empty((b, n // GROUP), dtype=torch.float32, device=x8.device)
+    lib = _build.load()
+    code = lib.vt_int8_gmin_scan(*(t.data_ptr() for t in ops), gmin.data_ptr(), n, d, b,
+                                 int(_is_l2(metric)),
+                                 torch.cuda.current_stream(x8.device).cuda_stream)
+    _build.check(code, "int8_gmin_scan")
+    LAUNCHES["int8_gmin_scan"] += 1
+    return gmin, bounded
+
+
+def _int8_rescore_ref(x8, scale, xsq, bias, q, gidx, *, metric):
+    """Plain PyTorch version of K4: ``[B, gsel, 64]`` ranks of the selected
+    groups' rows, ``(sum_d f32(x8) * q) * scale`` against the full f32 query
+    (sum first, then the scale, as ``_int8_rescore_body``); non-finite
+    ranks become +inf."""
+    no_tf32(q)
+    rows = _group_rows(gidx)
+    dots = torch.einsum("bgrd,bd->bgr", x8[rows].float(), q) * scale[rows]
+    rank = _rank(dots, xsq[rows], (q * q).sum(dim=1)[:, None, None], metric) + bias[rows]
+    return torch.where(torch.isfinite(rank), rank, torch.full_like(rank, float("inf")))
+
+
+def int8_rescore(x8, scale, xsq, bias, q, gidx, *, metric):
+    """Ranks of every row of the selected groups of an int8 block: ``[B,
+    gsel, 64]`` f32. ``q`` [B, d] f32 (the unquantized queries), ``gidx``
+    [B, gsel] int32 group indices (clamped into range)."""
+    _check_int8_operands(x8, scale, xsq, bias, q, torch.float32)
+    b, gsel = gidx.shape
+    if b != q.shape[0]:
+        raise ValueError(f"gidx has {b} rows for {q.shape[0]} queries")
+    if gidx.dtype != torch.int32 or gidx.device != x8.device:
+        raise TypeError("gidx must be an int32 tensor on the operands' device")
+    if x8.device.type == "cpu":
+        return _int8_rescore_ref(x8, scale, xsq, bias, q, gidx, metric=metric)
+    if not x8.is_cuda:
+        raise ValueError(f"int8_rescore runs on cuda or cpu tensors, not {x8.device}")
+    from .. import _build
+
+    if not all(t.is_contiguous() for t in (x8, scale, xsq, bias)):
+        raise ValueError("kernel operands must be contiguous")
+    n, d = x8.shape
+    q = q.contiguous()
+    qsq = (q * q).sum(dim=1)
+    gidx = gidx.contiguous()
+    out = torch.empty((b, gsel, GROUP), dtype=torch.float32, device=x8.device)
+    lib = _build.load()
+    code = lib.vt_int8_rescore(x8.data_ptr(), scale.data_ptr(), xsq.data_ptr(),
+                               bias.data_ptr(), q.data_ptr(), qsq.data_ptr(), gidx.data_ptr(),
+                               out.data_ptr(), n, d, b, gsel, int(_is_l2(metric)),
+                               torch.cuda.current_stream(x8.device).cuda_stream)
+    _build.check(code, "int8_rescore")
+    LAUNCHES["int8_rescore"] += 1
+    return out
+
+
+def fused_int8_search(x8, scale, xsq, bias, lex_rank, q, *, metric, k):
+    """Batched top-k over an int8-quantized block.
+
+    ``x8`` [N, d] int8 (per-row symmetric quantization, ``quantize_rows``),
+    ``scale`` [N] f32 dequant factors, ``xsq`` [N] f32 TRUE squared norms,
+    ``bias`` / ``lex_rank`` / ``q`` as ``fused_flat_search``. Selection
+    ranks are the quantized metric (the query is quantized too, so the
+    candidates are approximate); the returned raw values come from the
+    dequantized rows in full f32. Returns ``(slots, raws, ranks, ok)`` as
+    ``fused_flat_search``; ``ok`` False = a tie spill past the slack, or
+    dequant scales so extreme the quantized rank could overflow f32 (host
+    oracle)."""
+    n = x8.shape[0]
+    qf = q.float()
+    q8, qscale = quantize_rows(qf)
+    qsq = (qf * qf).sum(dim=1)
+    gmin, bounded = int8_gmin_scan(x8, scale, xsq, bias, q8, qscale, qsq, metric=metric)
+    gsel = min(k + GROUP_SLACK, n // GROUP)
+    _gtop, gidx, g_ok = select.group_topk(gmin, gsel, check_c=k)
+    cand = int8_rescore(x8, scale, xsq, bias, qf, gidx.int(), metric=metric)
+    top_slot, top_rank, tie_ok = _select_winners(cand, gidx, lex_rank, k)
+    # dequantized winners in full f32 (raw quality = the int8 storage noise)
+    rows = x8[top_slot].float() * scale[top_slot][:, :, None]
+    if _is_l2(metric):
+        diff = rows - qf[:, None, :]
+        sq = (diff * diff).sum(dim=-1)
+        raw = sq.sqrt() if metric == "l2" else sq
+        top_rank = torch.where(torch.isfinite(top_rank), raw, torch.full_like(raw, float("inf")))
+    else:
+        no_tf32(rows)
+        rdots = torch.einsum("bkd,bd->bk", rows, qf)
+        raw = -rdots if metric == "negative_inner_product" else rdots
+        if metric == "cosine":
+            top_rank = torch.where(torch.isfinite(top_rank), 1.0 - raw,
+                                   torch.full_like(raw, float("inf")))
+    return top_slot, raw, top_rank, bounded & g_ok.all() & tie_ok
 
 
 # ---------------------------------------------------------------------------
