@@ -16,8 +16,11 @@ Phases (each prints one line; any failure exits non-zero):
 2b. adaptive kernels at the same N, d, B: K5 ``stage_gmin_scan`` (dims =
    128; cosine and l2, f32 and bf16), K6 ``fused_sign_scan`` and K7
    ``extract_group_rows`` (at the funnel's and the quantized mode's
-   shapes) against their plain versions, with median times of both;
-2c. K3 ``int8_gmin_scan`` (bit-equal) and K4 ``int8_rescore`` at the same
+   shapes) against their plain versions, with median times of both, K6's
+   operand route and ``torch._int_mm`` on K6's operands (the int8 product
+   alone: a yardstick, not K6's function);
+2c. K3 ``int8_gmin_scan`` (bit-equal; its route and the ``torch._int_mm``
+   yardstick as K6's) and K4 ``int8_rescore`` at the same
    N, d, B (cosine and l2), and the MaxSim kernel ``maxsim_rank_scan`` at
    BASELINE config 5's shape (N = 100,352 docs x 32 tokens x 128 d, 64 sets
    of 4 query tokens: bf16 and f32 blocks of full docs, and an f32 block with
@@ -31,12 +34,14 @@ Phases (each prints one line; any failure exits non-zero):
    its block): quantized candidates=500 and funnel stages [128, 256, 384]
    candidates=200, limit 10, batch 512, sync and device entry points;
    oracle parity on 16 queries, no host route, the K5/K6/K7 launch counts
-   grown, times per batch, a ``torch.profiler`` trace of three batches of
+   grown (K6 on the direct TMA route), times per batch, a
+   ``torch.profiler`` trace of three batches of
    each device path (device busy time, idle share, top kernels), overlap@10
    against phase 4's exact results;
 4c. ``storage_view("int8")`` of phase 4's index: overlap@10 against exact
-   f32 on 32 queries, no host route, the K3/K4 launch counts grown, ms per
-   device batch of 512;
+   f32 on 32 queries, no host route, the K3/K4 launch counts grown (K3 on
+   the direct TMA route), ms per device batch of 512 and its
+   ``torch.profiler`` trace;
 5. snapshot: the phase-3 collection written and loaded back gives the same
    ids;
 6. BASELINE config 5, exact MaxSim: 100,000 docs x 32 bf16-exact tokens x
@@ -210,6 +215,14 @@ def host_ms(torch, fn, reps=7):
     return float(np.median(times))
 
 
+def int_mm_ms(torch, q8, x8):
+    """Median ms of ``torch._int_mm(q8, x8.T)``: the int8 product alone into
+    an int32 ``[B, N]`` matrix, on the same operands as K3 or K6. A yardstick
+    of the product only (the kernels compute more), so it is logged and not
+    reported as ``library_ms``; the port never calls it."""
+    return cuda_ms(torch, lambda: torch._int_mm(q8, x8.T))
+
+
 def adaptive_kernels(torch, fs, select, x32, bias, q, card):
     """Phase 2b: K5, K6 and K7 against their plain versions at the main
     path's shapes. Returns (max abs errors by kernel, median ms of the main
@@ -275,11 +288,22 @@ def adaptive_kernels(torch, fs, select, x32, bias, q, card):
                                                             d=x32.shape[1]))
     times["k6_plain"] = cuda_ms(torch, lambda: fs._fused_sign_scan_ref(signs, valid8, qsigns,
                                                                        d=x32.shape[1]))
+    times["k6_int_mm"] = int_mm_ms(torch, qsigns, signs)
     log(f"  K6 sign_scan d={x32.shape[1]}: bit-equal, {times['k6']:.3f} ms vs plain "
-        f"{times['k6_plain']:.3f} ms {card}")
+        f"{times['k6_plain']:.3f} ms; product-only yardstick torch._int_mm "
+        f"{times['k6_int_mm']:.3f} ms; routes {fs.ROUTES['sign_scan']} {card}")
     times["k7"], times["k7_plain"], times["k7_lib"] = k7_case(
         ham16.view(b, ng, fs.GROUP), gmin6, QUANT_C, "quantized")
     return errs, times
+
+
+def reset_counts(fs):
+    """Zeroes the kernels' launch counts and K3's and K6's route counts."""
+    for name in fs.LAUNCHES:
+        fs.LAUNCHES[name] = 0
+    for routes in fs.ROUTES.values():
+        for route in routes:
+            routes[route] = 0
 
 
 def distinct_rows(gidx):
@@ -323,8 +347,11 @@ def int8_kernels(torch, fs, select, x32, bias, q, card):
             "k4_plain": cuda_ms(torch, lambda: fs._int8_rescore_ref(x8, scale, xsq, bias, q,
                                                                     gidx, metric=metric)),
         }
+        t["k3_int_mm"] = int_mm_ms(torch, q8, x8)
         log(f"  K3 int8_gmin_scan {metric}: bit-equal, {t['k3']:.3f} ms vs plain "
-            f"{t['k3_plain']:.3f} ms | K4 int8_rescore: abs err {a4:.3g}, rel err {e4:.3g} "
+            f"{t['k3_plain']:.3f} ms, product-only yardstick torch._int_mm "
+            f"{t['k3_int_mm']:.3f} ms, routes {fs.ROUTES['int8_gmin_scan']} "
+            f"| K4 int8_rescore: abs err {a4:.3g}, rel err {e4:.3g} "
             f"(rtol {K4_RTOL}), "
             f"{t['k4']:.3f} ms vs plain {t['k4_plain']:.3f} ms {card}")
         if metric == "cosine":
@@ -409,12 +436,13 @@ def int8_view(torch, col, queries, exact, card):
     quant_s = time.perf_counter() - t1
     assert view._device[0].dtype == torch.int8 and view._fused_eligible(16)
     prepared = normalize_rows(queries, "l2")
-    for name in fs.LAUNCHES:
-        fs.LAUNCHES[name] = 0
+    reset_counts(fs)
     got = view.search_batch(prepared, 10)
     torch.cuda.synchronize()
     launches = dict(fs.LAUNCHES)
     assert launches["int8_gmin_scan"] > 0 and launches["int8_rescore"] > 0, launches
+    routes = dict(fs.ROUTES["int8_gmin_scan"])
+    assert routes == {"direct": launches["int8_gmin_scan"], "padded": 0}, routes
     assert view.host_routes == 0, f"host routes: {view.host_routes}"
     hits = [len({h[0] for h in a} & {r.id for r in w}) / 10 for a, w in zip(got, exact)]
     overlap = float(np.mean(hits[:32]))
@@ -423,7 +451,8 @@ def int8_view(torch, col, queries, exact, card):
     ms_dev = host_ms(torch, lambda: view.search_batch_device(qdev, 10))
     log(f"  int8 view: quantized on the card in {quant_s:.1f}s; overlap@10 against exact f32 "
         f"on 32 queries {overlap:.4f} (all {len(queries)}: {np.mean(hits):.4f}); "
-        f"search_batch_device B={len(queries)} {ms_dev:.3f} ms {card}")
+        f"search_batch_device B={len(queries)} {ms_dev:.3f} ms; K3 routes {routes} {card}")
+    profile_runs(torch, {"int8 view device": lambda: view.search_batch_device(qdev, 10)}, card)
     return launches, overlap, ms_dev
 
 
@@ -666,8 +695,7 @@ def adaptive_modes(torch, col, stored, queries, exact, card):
     cache.stage_xsq(FUNNEL_STAGES[0])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t1
-    for name in fs.LAUNCHES:
-        fs.LAUNCHES[name] = 0
+    reset_counts(fs)
     got_q = col.quantized_search_batch(queries, **quant)
     got_f = col.funnel_search_batch(queries, **funnel)
     dev_q = col.results_from_device(col.quantized_search_batch_device(qdev, **quant))
@@ -676,6 +704,7 @@ def adaptive_modes(torch, col, stored, queries, exact, card):
     launches = dict(fs.LAUNCHES)
     for name in ("stage_gmin_scan", "sign_scan", "extract_group_rows"):
         assert launches[name] > 0, f"{name} not launched: {launches}"
+    assert fs.ROUTES["sign_scan"] == {"direct": launches["sign_scan"], "padded": 0}, fs.ROUTES
     assert col.host_routes == 0, f"host routes: {col.host_routes}"
 
     def ids(rows):
@@ -896,8 +925,7 @@ def main() -> int:
     col.put_matrix(ids, corpus)
     ingest_s = time.perf_counter() - t0
     assert col.index._cap == N_MAIN and col.index._fused_eligible(16)
-    for name in fs.LAUNCHES:
-        fs.LAUNCHES[name] = 0
+    reset_counts(fs)
     t1 = time.perf_counter()
     got = col.search_batch(queries, limit=10)  # first call uploads the block
     torch.cuda.synchronize()

@@ -5,10 +5,10 @@ marker). Run them on the card with::
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
 
-Shapes are small but ragged on purpose: a query count that is not a
-multiple of the kernel's 128-query tile and a width that is not a multiple
-of its 32-element d-chunk. Tolerances as in ``chip_smoke.py``: group minima
-f32 atol 1e-5, bf16 atol 1e-4; rescored ranks atol 1e-5.
+Shapes are small but ragged on purpose: query counts that are not
+multiples of the kernels' query tiles and widths that are not multiples of
+their d-chunks. Tolerances as in ``chip_smoke.py``: group minima f32 atol
+1e-5, bf16 atol 1e-4; rescored ranks atol 1e-5.
 """
 
 import numpy as np
@@ -162,8 +162,8 @@ def test_sign_scan_kernel_matches_plain(cuda, shape):
 
 
 def test_sign_scan_kernel_reads_unaligned_rows(cuda):
-    # a block starting one row into a larger one: the rows are not 4-byte
-    # aligned, so the kernel takes its byte-wise load path
+    # a block starting one byte into a larger one, 127 bytes a row: TMA
+    # cannot address it, so the wrapper copies it to a 16-byte stride
     signs, valid8, qsigns = _signs(1088, 128, 5, cuda, seed=3)
     off = signs.flatten()[1:1 + 1024 * 127].view(1024, 127)
     assert off.data_ptr() % 4
@@ -484,3 +484,94 @@ def test_new_kernels_refuse_wrong_operands(cuda):
     with pytest.raises(ValueError, match="exceed"):
         ms.maxsim_rank_scan(tokens, counts, dbias, big, torch.zeros(big.shape[0], device=cuda),
                             b=1, metric="cosine")
+
+
+# ---------------------------------------------------------------------------
+# K3 and K6 on the int8 tensor cores: the edges of their shared s8 wgmma
+# mainloop (csrc/s8_scan.cuh). Query counts across its 64-, 128- and
+# 256-query tiles, widths across its 128-byte k-stages and TMA's 16-byte
+# stride rule (d = 100 takes the padded route), 17 groups (the last
+# 128-row tile half empty), operands at +-127, and K6 at its widest d. All
+# bit-equal to the plain versions.
+# ---------------------------------------------------------------------------
+
+S8_BATCHES = (1, 8, 129, 256, 257)
+S8_WIDTHS = (32, 100, 768, 4096)
+S8_ROWS = 17 * 64
+
+
+@pytest.mark.parametrize("d", S8_WIDTHS)
+@pytest.mark.parametrize("b", S8_BATCHES)
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_int8_gmin_scan_tensor_core_edges(cuda, metric, b, d):
+    x8, scale, xsq, bias, _q, q8, qscale, qsq = _int8_operands(S8_ROWS, d, b, cuda, seed=b + d)
+    args = (x8, scale, xsq, bias, q8, qscale, qsq)
+    gmin, bounded = fs.int8_gmin_scan(*args, metric=metric)
+    torch.cuda.synchronize()
+    assert bool(bounded)
+    assert torch.equal(gmin, fs._int8_gmin_scan_ref(*args, metric=metric))
+
+
+@pytest.mark.parametrize("d", S8_WIDTHS)
+@pytest.mark.parametrize("b", S8_BATCHES)
+def test_sign_scan_tensor_core_edges(cuda, b, d):
+    signs, valid8, qsigns = _signs(S8_ROWS, d, b, cuda, seed=b + d)
+    gmin, ham16 = fs.fused_sign_scan(signs, valid8, qsigns, d=d)
+    torch.cuda.synchronize()
+    want_gmin, want_ham = fs._fused_sign_scan_ref(signs, valid8, qsigns, d=d)
+    assert torch.equal(gmin, want_gmin) and torch.equal(ham16, want_ham)
+
+
+@pytest.mark.parametrize("d", [768, 4096])
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_int8_gmin_scan_saturated_operands(cuda, metric, d):
+    # every product is +-127 * 127, and one group of all-127 rows meets an
+    # all-127 and an all--127 query: dots of +-d * 127**2, the int32
+    # accumulator's extreme at these widths
+    rng = np.random.default_rng(d)
+    n, b = S8_ROWS, 129
+    x8 = torch.from_numpy((rng.integers(0, 2, (n, d)) * 254 - 127).astype(np.int8))
+    q8 = torch.from_numpy((rng.integers(0, 2, (b, d)) * 254 - 127).astype(np.int8))
+    x8[:64] = 127
+    q8[0], q8[1] = 127, -127
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, n).astype(np.float32))
+    qscale = torch.from_numpy(rng.uniform(1e-4, 1e-3, b).astype(np.float32))
+    xsq = ((x8.float() * scale[:, None]) ** 2).sum(dim=1)
+    qsq = ((q8.float() * qscale[:, None]) ** 2).sum(dim=1)
+    bias = torch.zeros(n)
+    bias[rng.choice(n, 5, replace=False)] = float("inf")
+    args = tuple(t.to(cuda) for t in (x8, scale, xsq, bias, q8, qscale, qsq))
+    gmin, bounded = fs.int8_gmin_scan(*args, metric=metric)
+    torch.cuda.synchronize()
+    assert bool(bounded)
+    assert torch.equal(gmin, fs._int8_gmin_scan_ref(*args, metric=metric))
+
+
+def test_sign_scan_at_the_widest_d(cuda):
+    d = fs._BIG16 // 2 - 1  # 16,382: the widest d whose Hamming fits int16
+    signs, valid8, qsigns = _signs(S8_ROWS, d, 5, cuda, seed=9)
+    gmin, ham16 = fs.fused_sign_scan(signs, valid8, qsigns, d=d)
+    torch.cuda.synchronize()
+    want_gmin, want_ham = fs._fused_sign_scan_ref(signs, valid8, qsigns, d=d)
+    assert torch.equal(gmin, want_gmin) and torch.equal(ham16, want_ham)
+
+
+def test_tensor_core_scans_count_their_operand_route(cuda):
+    # contiguous d = 768 blocks (the main path's) are read in place by TMA;
+    # a block one byte into a larger one, or d = 127, is copied first
+    x8, scale, xsq, bias, _q, q8, qscale, qsq = _int8_operands(1088, 768, 40, cuda)
+    signs, valid8, qsigns = _signs(1088, 768, 40, cuda)
+    before = {k: dict(v) for k, v in fs.ROUTES.items()}
+    fs.int8_gmin_scan(x8, scale, xsq, bias, q8, qscale, qsq, metric="cosine")
+    fs.fused_sign_scan(signs, valid8, qsigns, d=768)
+    for name in ("int8_gmin_scan", "sign_scan"):
+        assert fs.ROUTES[name] == {"direct": before[name]["direct"] + 1,
+                                   "padded": before[name]["padded"]}
+    off = signs.flatten()[1:1 + 1024 * 127].view(1024, 127)
+    fs.fused_sign_scan(off, valid8[:1024], qsigns[:, :127].contiguous(), d=127)
+    off8 = x8.flatten()[16:16 + 1024 * 768].view(1024, 768)  # aligned, in place
+    fs.int8_gmin_scan(off8, scale[:1024].contiguous(), xsq[:1024].contiguous(),
+                      bias[:1024].contiguous(), q8, qscale, qsq, metric="l2")
+    torch.cuda.synchronize()
+    assert fs.ROUTES["sign_scan"]["padded"] == before["sign_scan"]["padded"] + 1
+    assert fs.ROUTES["int8_gmin_scan"]["direct"] == before["int8_gmin_scan"]["direct"] + 2

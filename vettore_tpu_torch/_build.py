@@ -4,8 +4,11 @@
 ``nvcc`` per source started together, and links the objects into
 ``_build/<sources hash>/libvettore_kernels.so`` beside this file
 (git-ignored), once per version of the sources, then returns the loaded
-library with its argument types set. The hash covers every source's name
-and bytes and the compiler flags, so editing any kernel source rebuilds.
+library with its argument types set. The hash covers the name and bytes of
+every source and every header they share (``csrc/*.cuh``) and the compiler
+flags, so editing any kernel source or header rebuilds. The library links
+nothing beyond the CUDA runtime: the TMA tensor maps' encoder, a driver-API
+function, is looked up through the runtime's driver entry point.
 Nothing here runs at import time: the build happens only when a CUDA tensor
 first reaches a kernel wrapper, so the package imports on a machine without
 ``nvcc``.
@@ -45,14 +48,20 @@ def _nvcc() -> str:
 
 
 def sources(csrc: Path = CSRC) -> list:
-    """The kernel sources, in a fixed order."""
+    """The kernel sources (one object each), in a fixed order."""
     return sorted(csrc.glob("*.cu"))
 
 
+def headers(csrc: Path = CSRC) -> list:
+    """The headers the kernel sources share, in a fixed order."""
+    return sorted(csrc.glob("*.cuh"))
+
+
 def build_dir(csrc: Path = CSRC) -> Path:
-    """Build directory keyed by a hash of every kernel source and the flags."""
+    """Build directory keyed by a hash of every kernel source and header and
+    the flags."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in sources(csrc):
+    for src in sources(csrc) + headers(csrc):
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     return BUILD_ROOT / h.hexdigest()[:16]
 
@@ -99,11 +108,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     signatures = {
         "vt_gmin_scan": [p, i, p, p, p, p, p, i, i, i, i, p],
         "vt_rescore": [p, i, p, p, p, p, p, p, i, i, i, i, i, p],
-        "vt_int8_gmin_scan": [p, p, p, p, p, p, p, p, i, i, i, i, p],
+        "vt_int8_gmin_scan": [p, i, p, p, p, p, i, p, p, p, i, i, i, i, p],
         "vt_int8_rescore": [p, p, p, p, p, p, p, p, i, i, i, i, i, p],
         "vt_maxsim_rank_scan": [p, i, p, p, p, p, p, i, i, i, i, i, i, p],
         "vt_stage_gmin_scan": [p, i, p, p, p, p, p, p, i, i, i, i, i, p],
-        "vt_sign_scan": [p, p, p, p, p, i, i, i, p],
+        "vt_sign_scan": [p, i, p, p, i, p, p, i, i, i, p],
         "vt_extract_group_rows": [p, p, p, i, i, i, i, p],
     }
     for name, argtypes in signatures.items():

@@ -16,16 +16,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "s8_scan.cuh"
+
 namespace {
 
 constexpr int GROUP = 64;            // rows per selection group
-constexpr int QT = 128;              // queries per block (K5, K6)
+constexpr int QT = 128;              // queries per block (K5)
 constexpr int THREADS = 256;         // 16 row lanes x 16 query lanes
 constexpr int RPT = GROUP / 16;      // rows per thread (4)
 constexpr int QPT = QT / 16;         // queries per thread (8)
 constexpr int DC = 32;               // d-chunk staged through shared memory
-constexpr int BIG16 = 32767;         // Hamming of invalid rows
-
 __device__ __forceinline__ float load_x(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -172,114 +172,78 @@ stage_gmin_scan_kernel(const T* __restrict__ x, const float* __restrict__ xsq,
 // (body _sign_gmin_body), the quantized mode's stage-1 scan. (d - dot) is
 // even (d - dot = 2 * #disagreements), so the shift is exact.
 //
-// Bound: at the main-path shape (N = 1,000,448, d = 768, B = 512) it does
-// 2*N*d*B = 787 G int8 operations and writes the 1.02 GB int16 matrix after
-// reading 0.77 GB of signs: operations, on CUDA-core dp4a.
+// Bound: bytes. At the main-path shape (N = 1,000,448, d = 768, B = 512) it
+// reads 0.77 GB of signs and writes the 1.02 GB int16 matrix: 0.545 ms at
+// 3.35 TB/s, above the 787 G int8 operations' 0.398 ms on the tensor cores.
 //
-// Design: K1's block shape. Signs and query signs stage through shared
-// memory as packed 32-bit words (4 int8 each) in chunks of 32 words; each
-// thread keeps 4 x 8 int32 accumulators and runs __dp4a on the packed
-// words. A width d that is not a multiple of 4 loads the row's bytes one by
-// one and zero-fills the tail word, so the zero lanes add nothing to the
-// dot; d % 4 == 0 with 4-byte-aligned operands loads whole words. The
-// epilogue writes an int16 [query][row] tile to shared memory, from which
-// the group minima and coalesced 128-byte rows of the [B, N] matrix leave.
-//
-// Left for later: XOR + popcount on the packed sign words gives the same
-// values from 8x fewer bytes (d/8 instead of d per row), and s8 wgmma would
-// take the dot to the tensor cores.
+// Design: the dots run on the shared s8 wgmma mainloop (csrc/s8_scan.cuh:
+// a persistent grid, a TMA ring that loads the next tile during this one's
+// epilogue, tiles of 128 rows x up to 256 queries, rows read once from
+// device memory). The epilogue works from the accumulator registers: it
+// turns each dot into its Hamming value in place, takes the int32 group
+// minima as K3 does (s8::column_min), and writes the int16 values 64 query
+// columns at a time to a tile in shared memory as [query][row] (a 144-byte
+// row stride: conflict-free), from which each query's 64 values leave as
+// one coalesced 128-byte row of the [B, N] matrix, 16 bytes a lane, so the
+// write that bounds the kernel streams.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ int load_word(const int8_t* row, int w, int d, bool aligned) {
-  const int k = 4 * w;
-  if (k >= d) return 0;
-  if (aligned) return __ldg(reinterpret_cast<const int*>(row) + w);
-  unsigned v = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (k + i < d) v |= (unsigned)(uint8_t)row[k + i] << (8 * i);
-  return (int)v;
-}
+constexpr int BIG16 = 32767;         // Hamming of invalid rows
 
-__global__ void __launch_bounds__(THREADS)
-sign_scan_kernel(const int8_t* __restrict__ s, const int8_t* __restrict__ valid,
-                 const int8_t* __restrict__ qsg, int* __restrict__ gmin,
-                 int16_t* __restrict__ ham, int n, int d, int b, int aligned) {
-  // main loop: xs [DC][GROUP+1] then qw [DC][QT+1] words; epilogue: int16
-  // tile [QT][GROUP+2] (a 132-byte row stride keeps word reads aligned)
-  __shared__ int smem[DC * (GROUP + 1) + DC * (QT + 1)];
-  int(*xs)[GROUP + 1] = reinterpret_cast<int(*)[GROUP + 1]>(smem);
-  int(*qw)[QT + 1] = reinterpret_cast<int(*)[QT + 1]>(smem + DC * (GROUP + 1));
-  int16_t(*tile)[GROUP + 2] = reinterpret_cast<int16_t(*)[GROUP + 2]>(smem);
-  static_assert(QT * (GROUP + 2) * 2 <= (DC * (GROUP + 1) + DC * (QT + 1)) * 4,
-                "the int16 tile must fit the staging buffers");
+struct SignEpilogue {
+  const int8_t* valid;
+  int* gmin;
+  int16_t* ham;
+  int n, ng, b, d;
 
-  const int g = blockIdx.x;
-  const int q0 = blockIdx.y * QT;
-  const int t = threadIdx.x;
-  const int tx = t % 16;
-  const int ty = t / 16;
-  const int64_t row0 = (int64_t)g * GROUP;
-  const int words = (d + 3) / 4;
+  // the valid flags of the thread's two rows, loaded before the mainloop
+  struct Pre {
+    int8_t valid[2];
+  };
 
-  int acc[RPT][QPT];
+  template <int QN>
+  __device__ Pre prefetch(const s8::Frame& f) const {
+    Pre p;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < QPT; ++j) acc[i][j] = 0;
+    for (int h = 0; h < 2; ++h) p.valid[h] = valid[(int64_t)f.g * GROUP + s8::acc_row(f.t, h)];
+    return p;
+  }
 
-  for (int w0 = 0; w0 < words; w0 += DC) {
+  template <int QN>
+  __device__ void finish(int (&acc)[QN / 2], const s8::Frame& f, const Pre& p) const {
+    constexpr int LD = s8::TILE_LD;
+    const int64_t row0 = (int64_t)f.g * GROUP;
 #pragma unroll
-    for (int e = 0; e < GROUP * DC / THREADS; ++e) {
-      const int idx = t + e * THREADS;
-      const int r = idx / DC, c = idx % DC;
-      xs[c][r] = load_word(s + (row0 + r) * d, w0 + c, d, aligned);
+    for (int i = 0; i < QN / 2; ++i)
+      acc[i] = p.valid[(i / 2) % 2] != 0 ? (d - acc[i]) >> 1 : BIG16;
+    s8::named_sync(f.bar, 128);  // the previous tile's readers of the region are done
+    int* red = static_cast<int*>(f.red);
+    s8::column_min<QN, int>(acc, red, f.t, f.bar);
+    for (int col = f.t; col < QN; col += 128)
+      if (f.q0 + col < b) gmin[(int64_t)(f.q0 + col) * ng + f.g] = red[col];
+    // 64 query columns at a time through the int16 tile, [query][row]: each
+    // query's 64 values then leave as one 128-byte row, 8 lanes x 16 bytes
+#pragma unroll
+    for (int part = 0; part < QN / 64; ++part) {
+#pragma unroll
+      for (int j = 8 * part; j < 8 * part + 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            f.tile[(s8::acc_col(f.t, j, c) - 64 * part) * LD + s8::acc_row(f.t, h)] =
+                (int16_t)acc[4 * j + 2 * h + c];
+      s8::named_sync(f.bar, 128);
+      for (int i = f.t; i < 64 * 8; i += 128) {
+        const int col = i / 8, chunk = i % 8, qb = f.q0 + 64 * part + col;
+        if (qb < b)
+          *reinterpret_cast<uint4*>(ham + (int64_t)qb * n + row0 + 8 * chunk) =
+              *reinterpret_cast<const uint4*>(f.tile + col * LD + 8 * chunk);
+      }
+      s8::named_sync(f.bar, 128);
     }
-#pragma unroll
-    for (int e = 0; e < QT * DC / THREADS; ++e) {
-      const int idx = t + e * THREADS;
-      const int r = idx / DC, c = idx % DC, qb = q0 + r;
-      qw[c][r] = qb < b ? load_word(qsg + (int64_t)qb * d, w0 + c, d, aligned) : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      int a[RPT], w[QPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) a[i] = xs[c][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < QPT; ++j) w[j] = qw[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < QPT; ++j) acc[i][j] = __dp4a(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
   }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty + 16 * i;
-    const bool live = valid[row0 + r] != 0;
-#pragma unroll
-    for (int j = 0; j < QPT; ++j)
-      tile[tx + 16 * j][r] = (int16_t)(live ? (d - acc[i][j]) >> 1 : BIG16);
-  }
-  __syncthreads();
-
-  const int ng = n / GROUP;
-  if (t < QT && q0 + t < b) {
-    int m = tile[t][0];
-    for (int r = 1; r < GROUP; ++r) m = min(m, (int)tile[t][r]);
-    gmin[(int64_t)(q0 + t) * ng + g] = m;
-  }
-  const int warp = t / 32, lane = t % 32;
-  for (int ql = warp; ql < QT && q0 + ql < b; ql += THREADS / 32) {
-    // 64 int16 = 32 words: one word per lane
-    int* dst = reinterpret_cast<int*>(ham + (int64_t)(q0 + ql) * n + row0);
-    dst[lane] = reinterpret_cast<const int*>(tile[ql])[lane];
-  }
-}
+};
 
 // ---------------------------------------------------------------------------
 // K7 extract_group_rows: out[b, c, :] = mat[b, gidx[b, c], :]
@@ -347,20 +311,16 @@ int vt_stage_gmin_scan(const void* x, int x_bf16, const float* xsq, const float*
   return (int)cudaGetLastError();
 }
 
-// signs: [n, d] int8 (±1); valid: [n] int8 (0 = invalid row); qsigns:
-// [b, d] int8 (±1); gmin: [b, n/64] int32 and ham: [b, n] int16 outputs.
-// n % 64 == 0, 0 < d < 16383.
-int vt_sign_scan(const int8_t* signs, const int8_t* valid, const int8_t* qsigns, int* gmin,
-                 int16_t* ham, int n, int d, int b, void* stream) {
-  if (n <= 0 || n % GROUP || d <= 0 || d >= BIG16 / 2 || b <= 0 ||
-      (b + QT - 1) / QT > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int aligned = d % 4 == 0 && reinterpret_cast<uintptr_t>(signs) % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(qsigns) % 4 == 0;
-  const dim3 grid(n / GROUP, (b + QT - 1) / QT);
-  sign_scan_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      signs, valid, qsigns, gmin, ham, n, d, b, aligned);
-  return (int)cudaGetLastError();
+// signs: [n, d] int8 (±1) with row stride lds bytes; valid: [n] int8 (0 =
+// invalid row); qsigns: [b, d] int8 (±1) with row stride ldq bytes; gmin:
+// [b, n/64] int32 and ham: [b, n] int16 outputs. n % 64 == 0,
+// 0 < d < 16383; signs and qsigns 16-byte aligned, lds and ldq multiples of
+// 16 (TMA's rule; the wrapper pads other operands).
+int vt_sign_scan(const int8_t* signs, int lds, const int8_t* valid, const int8_t* qsigns,
+                 int ldq, int* gmin, int16_t* ham, int n, int d, int b, void* stream) {
+  if (d >= BIG16 / 2) return (int)cudaErrorInvalidValue;
+  const SignEpilogue epi{valid, gmin, ham, n, n / GROUP, b, d};
+  return (int)s8::scan(signs, lds, qsigns, ldq, n, d, b, epi, static_cast<cudaStream_t>(stream));
 }
 
 // mat: [b, rows, row_bytes] bytes; gidx: [b, c] int32; out: [b, c, row_bytes]

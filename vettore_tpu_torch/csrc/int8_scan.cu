@@ -16,27 +16,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "s8_scan.cuh"
+
 namespace {
 
-constexpr int GROUP = 64;         // rows per selection group
-constexpr int QT = 128;           // queries per block (K3)
-constexpr int THREADS = 256;      // 16 row lanes x 16 query lanes
-constexpr int RPT = GROUP / 16;   // rows per thread (4)
-constexpr int QPT = QT / 16;      // queries per thread (8)
-constexpr int DC = 32;            // 4-byte words staged per chunk
-
-// the 4 bytes at word w of an int8 row of d bytes, zero past the end (zero
-// lanes add nothing to a dot); whole-word loads when the row is aligned
-__device__ __forceinline__ int load_word(const int8_t* row, int w, int d, bool aligned) {
-  const int k = 4 * w;
-  if (k >= d) return 0;
-  if (aligned && k + 4 <= d) return __ldg(reinterpret_cast<const int*>(row) + w);
-  unsigned v = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (k + i < d) v |= (unsigned)(uint8_t)row[k + i] << (8 * i);
-  return (int)v;
-}
+constexpr int GROUP = 64;      // rows per selection group
+constexpr int THREADS = 256;   // K4: 8 warps
 
 // ---------------------------------------------------------------------------
 // K3 int8_gmin_scan: for int8 rows x8[r] (dequant scale[r]) and int8
@@ -47,111 +32,90 @@ __device__ __forceinline__ int load_word(const int8_t* row, int w, int d, bool a
 //   gmin[b, g] = min over the 64 rows r of group g of rank[b, r] + bias[r]
 //
 // Replaces the Pallas kernel vettore_tpu/ops/flat_scan.py::_int8_gmin_scan
-// (body _int8_gmin_body). The int32 dot is exact, so the result is bit-equal
-// to the plain version only if the epilogue rounds in the same order: it is
-// written with __fmul_rn / __fsub_rn / __fadd_rn, which nvcc never contracts
-// into an FMA.
+// (body _int8_gmin_body).
 //
 // Bound: operations. At the main-path shape (N = 1,000,448, d = 768,
 // B = 512) it does 2*N*d*B = 787 G int8 operations on 0.77 GB of rows; the
-// H100's int8 tensor-core peak (1,979 TOP/s) puts the bound at 0.40 ms, the
+// H100's int8 tensor-core peak (1,979 TOP/s) puts the bound at 0.398 ms, the
 // bytes at 0.23 ms.
 //
-// Design: K6's (csrc/adaptive_scan.cu). One block owns one 64-row group and
-// a 128-query tile, so the group-min needs no reduction across blocks. Rows
-// and queries stage through shared memory as packed 32-bit words (4 int8
-// each) in chunks of 32 words; each thread keeps 4 x 8 int32 accumulators
-// and runs __dp4a on the packed words. A width d that is not a multiple of 4
-// (or an unaligned block) loads bytes one by one and zero-fills the tail
-// word. The epilogue dequantizes, applies the rank and bias, takes each
-// thread's min over its 4 rows and then the min over the 16 row lanes
-// through shared memory (K1's epilogue). No finiteness pass: the wrapper
-// proves per batch that no rank can overflow (_int8_bounded).
-//
-// Left for later: s8 wgmma (the int8 tensor cores) fed by TMA; this kernel
-// issues dp4a on the CUDA cores.
+// Design: the int8 tensor cores. The dots run on the shared s8 wgmma
+// mainloop (csrc/s8_scan.cuh: a persistent grid, a TMA ring, tiles of 128
+// rows x up to 256 queries). The dot is an exact int32, so the result is
+// bit-equal to the plain version only if the epilogue rounds in the same
+// order: it is written with __fmul_rn / __fsub_rn / __fadd_rn, which nvcc
+// never contracts into an FMA, straight from the accumulator registers.
+// Each thread turns its 2 rows x QN/4 columns into ranks in place (the
+// tile's query scales and norms staged in shared memory first); the
+// group-min is taken in the thread, across the lanes by shuffles and across
+// the 4 warps through shared memory (s8::column_min). No finiteness pass:
+// the wrapper proves per batch that no rank can overflow (_int8_bounded).
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-int8_gmin_scan_kernel(const int8_t* __restrict__ x8, const float* __restrict__ scale,
-                      const float* __restrict__ xsq, const float* __restrict__ bias,
-                      const int8_t* __restrict__ q8, const float* __restrict__ qscale,
-                      const float* __restrict__ qsq, float* __restrict__ gmin, int ng,
-                      int d, int b, int l2, int aligned) {
-  __shared__ int xs[DC][GROUP + 1];
-  __shared__ int qw[DC][QT + 1];
-  __shared__ float red[16][QT];
+struct Int8Epilogue {
+  const float* scale;
+  const float* xsq;
+  const float* bias;
+  const float* qscale;
+  const float* qsq;
+  float* gmin;
+  int ng, b, l2;
 
-  const int g = blockIdx.x;
-  const int q0 = blockIdx.y * QT;
-  const int t = threadIdx.x;
-  const int tx = t % 16;  // query lane: queries tx + 16*j
-  const int ty = t / 16;  // row lane: rows ty + 16*i
-  const int64_t row0 = (int64_t)g * GROUP;
-  const int words = (d + 3) / 4;
+  // loaded before the mainloop, used after it: the scale, norm and bias of
+  // the thread's two rows, and the tile's query scales and norms at
+  // columns t and t + 128 (staged in shared memory by finish)
+  struct Pre {
+    float sr[2], xr[2], br[2], qs[2], qv[2];
+  };
 
-  int acc[RPT][QPT];
+  template <int QN>
+  __device__ Pre prefetch(const s8::Frame& f) const {
+    Pre p;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < QPT; ++j) acc[i][j] = 0;
-
-  for (int w0 = 0; w0 < words; w0 += DC) {
-#pragma unroll
-    for (int e = 0; e < GROUP * DC / THREADS; ++e) {
-      const int idx = t + e * THREADS;
-      const int r = idx / DC, c = idx % DC;
-      xs[c][r] = load_word(x8 + (row0 + r) * d, w0 + c, d, aligned);
+    for (int h = 0; h < 2; ++h) {
+      const int64_t r = (int64_t)f.g * GROUP + s8::acc_row(f.t, h);
+      p.sr[h] = scale[r];
+      p.xr[h] = xsq[r];
+      p.br[h] = bias[r];
+      const int qb = f.q0 + f.t + 128 * h;
+      p.qs[h] = qb < b ? qscale[qb] : 0.f;
+      p.qv[h] = qb < b ? qsq[qb] : 0.f;
     }
-#pragma unroll
-    for (int e = 0; e < QT * DC / THREADS; ++e) {
-      const int idx = t + e * THREADS;
-      const int r = idx / DC, c = idx % DC, qb = q0 + r;
-      qw[c][r] = qb < b ? load_word(q8 + (int64_t)qb * d, w0 + c, d, aligned) : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      int a[RPT], w[QPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) a[i] = xs[c][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < QPT; ++j) w[j] = qw[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < QPT; ++j) acc[i][j] = __dp4a(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
+    return p;
   }
 
-  float part[QPT];
+  template <int QN>
+  __device__ void finish(int (&acc)[QN / 2], const s8::Frame& f, const Pre& p) const {
+    const float* sr = p.sr;
+    const float* xr = p.xr;
+    const float* br = p.br;
+    // the previous tile's readers of side and red passed column_min's barriers
 #pragma unroll
-  for (int j = 0; j < QPT; ++j) part[j] = INFINITY;
+    for (int h = 0; h < 2; ++h)
+      if (f.t + 128 * h < QN) {
+        f.side[f.t + 128 * h] = p.qs[h];
+        f.side[QN + f.t + 128 * h] = p.qv[h];
+      }
+    s8::named_sync(f.bar, 128);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int64_t r = row0 + ty + 16 * i;
-    const float sr = scale[r], xr = xsq[r], br = bias[r];
+    for (int j = 0; j < QN / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      const int qb = q0 + tx + 16 * j;
-      const float qs = qb < b ? qscale[qb] : 0.f;
-      const float qv = qb < b ? qsq[qb] : 0.f;
-      const float approx = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), sr), qs);
-      const float rank = l2 ? __fadd_rn(__fsub_rn(xr, __fmul_rn(2.f, approx)), qv) : -approx;
-      part[j] = fminf(part[j], __fadd_rn(rank, br));
-    }
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = s8::acc_col(f.t, j, c);
+          int& v = acc[4 * j + 2 * h + c];
+          const float approx = __fmul_rn(__fmul_rn(__int2float_rn(v), sr[h]), f.side[col]);
+          const float rank =
+              l2 ? __fadd_rn(__fsub_rn(xr[h], __fmul_rn(2.f, approx)), f.side[QN + col]) : -approx;
+          v = __float_as_int(__fadd_rn(rank, br[h]));
+        }
+    float* red = static_cast<float*>(f.red);
+    s8::column_min<QN, float>(acc, red, f.t, f.bar);
+    for (int col = f.t; col < QN; col += 128)
+      if (f.q0 + col < b) gmin[(int64_t)(f.q0 + col) * ng + f.g] = red[col];
   }
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) red[ty][tx + 16 * j] = part[j];
-  __syncthreads();
-  if (t < QT && q0 + t < b) {
-    float m = red[0][t];
-#pragma unroll
-    for (int r = 1; r < 16; ++r) m = fminf(m, red[r][t]);
-    gmin[(int64_t)(q0 + t) * ng + g] = m;
-  }
-}
+};
 
 // ---------------------------------------------------------------------------
 // K4 int8_rescore: out[b, s, r] = rank(dot * scale) + bias for the 64 rows
@@ -213,20 +177,15 @@ int8_rescore_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sca
 
 extern "C" {
 
-// x8: [n, d] int8; scale, xsq, bias: [n] f32; q8: [b, d] int8; qscale,
-// qsq: [b] f32; gmin: [b, n/64] f32 output. n % 64 == 0.
-int vt_int8_gmin_scan(const int8_t* x8, const float* scale, const float* xsq,
-                      const float* bias, const int8_t* q8, const float* qscale,
-                      const float* qsq, float* gmin, int n, int d, int b, int l2,
-                      void* stream) {
-  if (n <= 0 || n % GROUP || d <= 0 || b <= 0 || (b + QT - 1) / QT > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int aligned = d % 4 == 0 && reinterpret_cast<uintptr_t>(x8) % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(q8) % 4 == 0;
-  const dim3 grid(n / GROUP, (b + QT - 1) / QT);
-  int8_gmin_scan_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x8, scale, xsq, bias, q8, qscale, qsq, gmin, n / GROUP, d, b, l2, aligned);
-  return (int)cudaGetLastError();
+// x8: [n, d] int8 with row stride ldx bytes; scale, xsq, bias: [n] f32;
+// q8: [b, d] int8 with row stride ldq bytes; qscale, qsq: [b] f32; gmin:
+// [b, n/64] f32 output. n % 64 == 0; x8 and q8 16-byte aligned, ldx and ldq
+// multiples of 16 (TMA's rule; the wrapper pads other operands).
+int vt_int8_gmin_scan(const int8_t* x8, int ldx, const float* scale, const float* xsq,
+                      const float* bias, const int8_t* q8, int ldq, const float* qscale,
+                      const float* qsq, float* gmin, int n, int d, int b, int l2, void* stream) {
+  const Int8Epilogue epi{scale, xsq, bias, qscale, qsq, gmin, n / GROUP, b, l2};
+  return (int)s8::scan(x8, ldx, q8, ldq, n, d, b, epi, static_cast<cudaStream_t>(stream));
 }
 
 // q: [b, d] f32 (unquantized); qsq: [b] f32; gidx: [b, gsel] int32;

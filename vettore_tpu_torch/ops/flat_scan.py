@@ -29,7 +29,7 @@ The adaptive pipelines (``ops/pipeline.py``) run three more kernels
   rank matrix, in one pass (``fused_stage_candidates`` selects from them);
 * **K6** ``fused_sign_scan`` — quantized stage 1: Hamming distances of ±1
   int8 sign rows, their 64-row group minima and the ``[B, N]`` int16
-  Hamming matrix, in one pass;
+  Hamming matrix, in one pass, on the int8 tensor cores;
 * **K7** ``extract_group_rows`` — the gather of selected 64-wide group rows
   out of K5's or K6's ``[B, N]`` matrix (and of the MaxSim rank matrix,
   ``ops/maxsim.py``).
@@ -38,7 +38,10 @@ The adaptive pipelines (``ops/pipeline.py``) run three more kernels
 (``csrc/int8_scan.cu``):
 
 * **K3** ``int8_gmin_scan`` — int8 x int8 exact int32 dots, dequantized by
-  the row and query scales, the K1 rank and its 64-row group minima;
+  the row and query scales, the K1 rank and its 64-row group minima. K3
+  and K6 share one int8 tensor-core mainloop (``csrc/s8_scan.cuh``), fed by
+  TMA; ``ROUTES`` counts whether their operands were read in place or
+  first copied to a stride TMA can address;
 * **K4** ``int8_rescore`` — the selected groups' int8 rows against the full
   f32 query, dequantized after the sum.
 
@@ -83,6 +86,12 @@ _SAFE_LOG = 86.0  # log(2.2e37) >= log(|dot|) bound via Cauchy-Schwarz
 #: kernel launch counts, by kernel name
 LAUNCHES = {"gmin_scan": 0, "rescore": 0, "int8_gmin_scan": 0, "int8_rescore": 0,
             "stage_gmin_scan": 0, "sign_scan": 0, "extract_group_rows": 0}
+
+#: launches of the two int8 tensor-core scans by operand route: "direct"
+#: when TMA reads both operands in place, "padded" when one of them first
+#: went through ``_tma_rows``'s copy
+ROUTES = {"int8_gmin_scan": {"direct": 0, "padded": 0},
+          "sign_scan": {"direct": 0, "padded": 0}}
 
 
 def supports(metric: str, cap: int, k: int) -> bool:
@@ -371,12 +380,33 @@ def _check_int8_operands(x8, scale, xsq, bias, q, q_dtype):
             raise ValueError(f"operands on {t.device} and {x8.device}")
 
 
+def _tma_rows(t):
+    """``t`` [rows, d] int8 as TMA can read it: ``(rows, row stride in bytes,
+    copied)``. TMA needs a 16-byte aligned base and a row stride that is a
+    multiple of 16 bytes; any other block (a width off 16, a view at an odd
+    offset) is copied into a zero-padded one with the next such stride. The
+    kernel reads only the first ``d`` bytes of each row."""
+    d = t.shape[1]
+    if d % 16 == 0 and t.data_ptr() % 16 == 0:
+        return t, d, False
+    ld = -(-d // 16) * 16
+    padded = t.new_zeros((t.shape[0], ld))
+    padded[:, :d] = t
+    return padded, ld, True
+
+
+def _count_route(name, *copied):
+    LAUNCHES[name] += 1
+    ROUTES[name]["padded" if any(copied) else "direct"] += 1
+
+
 def _int8_bounded(scale, xsq, qscale, qsq, d):
     """Overflow proof of the int8 scan: ``|approx| <= d * 127**2 * scale *
     qscale`` exactly, so every rank is finite when that product and the
-    norm terms sit under the per-term cap. 0-dim bool tensor."""
-    amax = (torch.tensor(float(d * 127 * 127), dtype=torch.float32, device=scale.device)
-            * scale.max() * qscale.abs().max())
+    norm terms sit under the per-term cap. 0-dim bool tensor. The constant
+    enters as a Python scalar: a tensor made from it on the card would be a
+    host-to-device copy, which waits for the stream."""
+    amax = scale.max() * float(d * 127 * 127) * qscale.abs().max()
     return ((amax < _SAFE_LIM) & (xsq.max() < _SAFE_LIM) & (qsq < _SAFE_LIM)).all()
 
 
@@ -413,17 +443,19 @@ def int8_gmin_scan(x8, scale, xsq, bias, q8, qscale, qsq, *, metric):
         raise ValueError(f"int8_gmin_scan runs on cuda or cpu tensors, not {x8.device}")
     from .. import _build
 
-    ops = (x8, scale, xsq, bias, q8, qscale, qsq)
-    if not all(t.is_contiguous() for t in ops):
+    if not all(t.is_contiguous() for t in (x8, scale, xsq, bias, q8, qscale, qsq)):
         raise ValueError("kernel operands must be contiguous")
     n = x8.shape[0]
+    xt, ldx, x_copied = _tma_rows(x8)
+    qt, ldq, q_copied = _tma_rows(q8)
     gmin = torch.empty((b, n // GROUP), dtype=torch.float32, device=x8.device)
     lib = _build.load()
-    code = lib.vt_int8_gmin_scan(*(t.data_ptr() for t in ops), gmin.data_ptr(), n, d, b,
-                                 int(_is_l2(metric)),
+    code = lib.vt_int8_gmin_scan(xt.data_ptr(), ldx, scale.data_ptr(), xsq.data_ptr(),
+                                 bias.data_ptr(), qt.data_ptr(), ldq, qscale.data_ptr(),
+                                 qsq.data_ptr(), gmin.data_ptr(), n, d, b, int(_is_l2(metric)),
                                  torch.cuda.current_stream(x8.device).cuda_stream)
     _build.check(code, "int8_gmin_scan")
-    LAUNCHES["int8_gmin_scan"] += 1
+    _count_route("int8_gmin_scan", x_copied, q_copied)
     return gmin, bounded
 
 
@@ -693,14 +725,16 @@ def fused_sign_scan(signs, valid8, qsigns, *, d):
             raise ValueError("kernel operands must be contiguous")
     n = signs.shape[0]
     b = qsigns.shape[0]
+    st, lds, s_copied = _tma_rows(signs)
+    qt, ldq, q_copied = _tma_rows(qsigns)
     gmin = torch.empty((b, n // GROUP), dtype=torch.int32, device=signs.device)
     ham16 = torch.empty((b, n), dtype=torch.int16, device=signs.device)
     lib = _build.load()
-    code = lib.vt_sign_scan(signs.data_ptr(), valid8.data_ptr(), qsigns.data_ptr(),
+    code = lib.vt_sign_scan(st.data_ptr(), lds, valid8.data_ptr(), qt.data_ptr(), ldq,
                             gmin.data_ptr(), ham16.data_ptr(), n, d, b,
                             torch.cuda.current_stream(signs.device).cuda_stream)
     _build.check(code, "sign_scan")
-    LAUNCHES["sign_scan"] += 1
+    _count_route("sign_scan", s_copied, q_copied)
     return gmin, ham16
 
 

@@ -43,8 +43,11 @@ _GROUP = 64
 #: int16 pad for invalid rows' Hamming (any real value is <= d < 16384)
 _BIG16 = 32767
 #: below this many rows the direct full-width composite pass is used. On an
-#: H100 at d = 768 and a batch of 512, the K6 group cover overtakes the
-#: direct pass between 32k and 64k rows for 500 candidates.
+#: NVIDIA H100 80GB HBM3 at 700 W, d = 768 and 500 candidates
+#: (tools/sign_cover_crossover.py, three runs), the K6 group cover wins at a
+#: batch of 512 from 65,536 rows in every run (at 32,768 in two of three);
+#: at batches of 1-16 both routes take 1-2 ms, bound by launches, and the
+#: cover wins from 262k-524k rows.
 _GROUP_COVER_MIN = 65536
 #: below this many rows the plain stage 1 (materialized [B, N] rank matrix)
 #: is used instead of the fused K5 scan. On an H100 at d = 768 and a batch of
