@@ -12,7 +12,8 @@ Phases (each prints one line; any failure exits non-zero):
 1. device: the card, its power limit, the kernel build;
 2. kernels: K1 ``gmin_scan`` and K2 ``rescore`` against their plain versions
    at N = 1,000,448, d = 768, B = 512 (cosine and l2, f32 and bf16), with
-   median times of both;
+   median times of both, and ``torch.matmul`` on K1's operands (f32 with
+   TF32 off, and bf16: the product alone, a yardstick, not K1's function);
 2b. adaptive kernels at the same N, d, B: K5 ``stage_gmin_scan`` (dims =
    128; cosine and l2, f32 and bf16), K6 ``fused_sign_scan`` and K7
    ``extract_group_rows`` (at the funnel's and the quantized mode's
@@ -29,7 +30,9 @@ Phases (each prints one line; any failure exits non-zero):
    the oracle; single-query ``search`` equals ``search_batch``;
 4. headline scale: 1M x 768 cosine f32 clustered corpus, batch 512, limit 10:
    oracle parity on 32 queries, no host-oracle route, both kernel launch
-   counts grown, bf16 storage overlap@10 >= 0.95, and times per batch;
+   counts grown in the f32 run and in the bf16 run, every K1 launch on the
+   direct TMA route, bf16 storage overlap@10 >= 0.95, times per batch and
+   a ``torch.profiler`` trace of the f32 and bf16 device batches;
 4b. BASELINE configs 3 and 4 on phase 4's collection (the scan cache shares
    its block): quantized candidates=500 and funnel stages [128, 256, 384]
    candidates=200, limit 10, batch 512, sync and device entry points;
@@ -101,8 +104,9 @@ INT8_OVERLAP_MIN = 0.90
 MV_N, MV_T, MV_D, MV_Q, MV_B, MV_SETS = 100_000, 32, 128, 4, 64, 128
 MV_ORACLE_SETS = 8
 #: the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
-#: f32 on CUDA cores, bf16 and int8 on tensor cores, HBM3 bytes per second
-PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12, "bytes": 3.35e12}
+#: f32 on CUDA cores, tf32, bf16 and int8 on tensor cores, HBM3 bytes per
+#: second
+PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bytes": 3.35e12}
 #: BASELINE.json configs 3 (quantized) and 4 (funnel)
 QUANT_C = 500
 FUNNEL_STAGES, FUNNEL_C = (128, 256, 384), 200
@@ -822,7 +826,7 @@ def main() -> int:
     bias[corpus.shape[0]:] = float("inf")  # capacity padding: dead, all-zero rows
     xsq = (x32 * x32).sum(dim=1)
     q = torch.from_numpy(queries).to(dev)
-    errs = {"gmin_scan": 0.0, "rescore": 0.0}
+    errs = {"gmin_scan": 0.0, "gmin_scan_bf16": 0.0, "rescore": 0.0}
     times = {}
     for storage in ("f32", "bf16"):
         x = x32 if storage == "f32" else x32.to(torch.bfloat16)
@@ -844,7 +848,8 @@ def main() -> int:
             e2 = (out[fin2] - ref2[fin2]).abs().max().item()
             assert e2 <= K2_ATOL, f"K2 {storage} {metric} err {e2}"
             del ref, ref2, out, gmin
-            errs["gmin_scan"] = max(errs["gmin_scan"], e1)
+            k1_name = "gmin_scan" if storage == "f32" else "gmin_scan_bf16"
+            errs[k1_name] = max(errs[k1_name], e1)
             errs["rescore"] = max(errs["rescore"], e2)
             t = {
                 "k1": cuda_ms(torch, lambda: fs.gmin_scan(x, xsq, bias, q, metric=metric)),
@@ -860,6 +865,14 @@ def main() -> int:
                 f"{t['k1']:.3f} ms vs plain {t['k1_plain']:.3f} ms | K2 rescore: err "
                 f"{e2:.3g} (atol {K2_ATOL}), {t['k2']:.3f} ms vs plain {t['k2_plain']:.3f} ms "
                 f"{card}")
+        # the product alone on K1's operands, in the precision K1 keeps: a
+        # yardstick of the matmul only (K1 also ranks and reduces, and never
+        # writes the [B, N] matrix), so it is logged and not library_ms
+        qk = q if storage == "f32" else q.to(torch.bfloat16)
+        mm = cuda_ms(torch, lambda: torch.matmul(qk, x.T))
+        log(f"  K1 {storage}: product-only yardstick torch.matmul {qk.dtype} [{B_MAIN}, "
+            f"{D_MAIN}] x [{D_MAIN}, {N_MAIN}] {mm:.3f} ms; routes {fs.ROUTES['gmin_scan']} "
+            f"{card}")
     del x
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -930,13 +943,22 @@ def main() -> int:
     got = col.search_batch(queries, limit=10)  # first call uploads the block
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t1
+    launches = dict(fs.LAUNCHES)
+    assert launches["gmin_scan"] > 0 and launches["rescore"] > 0, (
+        f"kernels not launched: {launches}")
+    assert fs.ROUTES["gmin_scan"] == {"direct": launches["gmin_scan"], "padded": 0}, fs.ROUTES
     stored = normalize_rows(corpus, "l2")  # the bytes the collection stores
     truth = f64_oracle(stored, ids, queries[:32], 10)
     swaps = sum(check_hits([(r.id, r.score) for r in row], want, 10)
                 for row, want in zip(got[:32], truth))
     assert col.index.host_routes == 0, f"host-oracle routes: {col.index.host_routes}"
     view = col.index.storage_view("bf16")
+    reset_counts(fs)
     got16 = view.search_batch(normalize_rows(queries, "l2"), 10)
+    torch.cuda.synchronize()
+    launches16 = dict(fs.LAUNCHES)
+    assert launches16["gmin_scan"] > 0 and launches16["rescore"] > 0, launches16
+    assert fs.ROUTES["gmin_scan"] == {"direct": launches16["gmin_scan"], "padded": 0}, fs.ROUTES
     overlap = float(np.mean([len({h[0] for h in a} & {r.id for r in b}) / 10
                              for a, b in zip(got16, got)]))
     assert overlap >= 0.95, f"bf16 overlap@10 {overlap}"
@@ -944,17 +966,17 @@ def main() -> int:
     ms_f32 = host_ms(torch, lambda: col.index.search_batch_device(qdev, 10))
     ms_bf16 = host_ms(torch, lambda: view.search_batch_device(qdev, 10))
     ms_sync = host_ms(torch, lambda: col.search_batch(queries, limit=10), reps=5)
-    launches = dict(fs.LAUNCHES)
     assert col.index.host_routes == 0
-    assert launches["gmin_scan"] > 0 and launches["rescore"] > 0, (
-        f"kernels not launched: {launches}")
     torch.cuda.synchronize()
     log(f"  ingest {ingest_s:.1f}s, first search_batch (upload + search) {first_s:.1f}s")
     log(f"  search_batch_device B={B_MAIN}: f32 {ms_f32:.3f} ms, bf16 {ms_bf16:.3f} ms; "
         f"search_batch (sync, hydrated) f32 {ms_sync:.3f} ms {card}")
+    profile_runs(torch, {"flat f32 device": lambda: col.index.search_batch_device(qdev, 10),
+                         "flat bf16 device": lambda: view.search_batch_device(qdev, 10)}, card)
     log(f"[phase 4] {N_CORPUS}x{D_MAIN} cosine f32: ids equal the f64 oracle on 32 queries ({swaps} "
         f"near-tie swaps), host routes f32 0 / bf16 {view.host_routes}, bf16 overlap@10 "
-        f"{overlap:.4f}, launches {launches} ({time.perf_counter() - t0:.1f}s)")
+        f"{overlap:.4f}, launches f32 {launches}, bf16 {launches16}, K1 all on the direct "
+        f"route ({time.perf_counter() - t0:.1f}s)")
     del view
     torch.cuda.empty_cache()
 
@@ -999,10 +1021,15 @@ def main() -> int:
     # config 5's full bf16 block; K2 and K4 read the distinct selected rows
     n, d, b, g = N_MAIN, D_MAIN, B_MAIN, N_MAIN // fs.GROUP
     gsel, dims, c7 = 16 + fs.GROUP_SLACK, FUNNEL_STAGES[0], QUANT_C
-    main_t = times[("f32", "cosine")]
+    main_t, bf16_t = times[("f32", "cosine")], times[("bf16", "cosine")]
     rows = [
+        # f32 blocks: three TF32 products (3xTF32) over x, q_hi and q_lo
         ("gmin_scan", "flat_scan.cu", "flat_scan.py:134", launches, main_t["k1"],
-         main_t["k1_plain"], None, bound(2 * n * d * b, "f32", 4 * (n * d + 2 * n + b * d + b + b * g))),
+         main_t["k1_plain"], None,
+         bound(3 * 2 * n * d * b, "tf32", 4 * (n * d + 2 * n + 2 * b * d + b + b * g))),
+        ("gmin_scan_bf16", "flat_scan.cu", "flat_scan.py:134", launches16, bf16_t["k1"],
+         bf16_t["k1_plain"], None,
+         bound(2 * n * d * b, "bf16", 2 * n * d + 4 * 2 * n + 2 * b * d + 4 * b + 4 * b * g)),
         ("rescore", "flat_scan.cu", "flat_scan.py:208", launches, main_t["k2"],
          main_t["k2_plain"], None,
          bound(2 * b * gsel * 64 * d, "f32",
@@ -1025,7 +1052,7 @@ def main() -> int:
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": f"vettore_tpu_torch/csrc/{src}",
-         "replaces": f"vettore_tpu/ops/{tpu}", "launches": counts[name],
+         "replaces": f"vettore_tpu/ops/{tpu}", "launches": counts[name.removesuffix("_bf16")],
          "max_abs_err": errs[name], "max_rel_err": rel_errs.get(name), "ms": k_ms,
          "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
         for name, src, tpu, counts, k_ms, plain_ms, lib_ms, bnd in rows

@@ -203,3 +203,18 @@ def test_plain_versions_count_no_launches():
     tfs.fused_flat_search(*(torch.from_numpy(a) for a in (x, xsq, bias, lex_rank, q)),
                           metric="l2", k=8)
     assert tfs.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,d,ld", [(torch.float32, 768, 768), (torch.float32, 127, 128),
+                                        (torch.bfloat16, 100, 104), (torch.int8, 33, 48)])
+def test_tma_rows_pads_rows_to_16_bytes(dtype, d, ld):
+    # the tensor-core scans' operand route: rows of a multiple of 16 bytes
+    # are read in place, any other row is copied to the next such stride,
+    # zero-filled; a tensor whose rows are not d elements apart raises
+    t = torch.from_numpy(np.random.default_rng(d).normal(size=(64, d)) * 50).to(dtype)
+    out, ld_bytes, copied = tfs._tma_rows(t)
+    assert ld_bytes == ld * t.element_size() and copied == (ld != d)
+    assert out.data_ptr() % 16 == 0 and out.is_contiguous()
+    assert torch.equal(out[:, :d], t) and not out[:, d:].any()
+    with pytest.raises(ValueError, match="contiguous"):
+        tfs._tma_rows(t.t().contiguous().t())

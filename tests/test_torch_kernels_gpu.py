@@ -488,7 +488,7 @@ def test_new_kernels_refuse_wrong_operands(cuda):
 
 # ---------------------------------------------------------------------------
 # K3 and K6 on the int8 tensor cores: the edges of their shared s8 wgmma
-# mainloop (csrc/s8_scan.cuh). Query counts across its 64-, 128- and
+# mainloop (csrc/wgmma_scan.cuh, policy S8). Query counts across its 64-, 128- and
 # 256-query tiles, widths across its 128-byte k-stages and TMA's 16-byte
 # stride rule (d = 100 takes the padded route), 17 groups (the last
 # 128-row tile half empty), operands at +-127, and K6 at its widest d. All
@@ -575,3 +575,149 @@ def test_tensor_core_scans_count_their_operand_route(cuda):
     torch.cuda.synchronize()
     assert fs.ROUTES["sign_scan"]["padded"] == before["sign_scan"]["padded"] + 1
     assert fs.ROUTES["int8_gmin_scan"]["direct"] == before["int8_gmin_scan"]["direct"] + 2
+
+
+# ---------------------------------------------------------------------------
+# K1 gmin_scan on the tensor cores: the bf16 and 3xTF32 policies of the
+# shared scan skeleton (csrc/wgmma_scan.cuh). Query counts across the 64-,
+# 128- and 256-query tiles, widths across the 128-byte k-stages and TMA's
+# 16-byte stride rule (f32 d = 127 and bf16 d = 100 and 127 take the padded
+# route), 17 groups (the last 128-row tile half empty), dead rows, rows and
+# queries of huge norm, and a near-tie corpus that only an f32-accurate
+# scan orders. Tolerances as above: f32 atol 1e-5, bf16 atol 1e-4 (relative
+# to max(1, |rank|) where ranks are huge).
+# ---------------------------------------------------------------------------
+
+K1_BATCHES = (1, 8, 129, 256, 257)
+K1_WIDTHS = (32, 100, 127, 768, 4096)
+K1_ROWS = 17 * 64
+
+
+@pytest.mark.parametrize("d", K1_WIDTHS)
+@pytest.mark.parametrize("b", K1_BATCHES)
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", fs.FUSED_METRICS)
+def test_gmin_scan_tensor_core_edges(cuda, metric, storage, b, d):
+    x, xsq, bias, q = _operands(K1_ROWS, d, b, storage, cuda, seed=b + d)
+    before = fs.LAUNCHES["gmin_scan"]
+    gmin, bounded = fs.gmin_scan(x, xsq, bias, q, metric=metric)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["gmin_scan"] == before + 1 and bool(bounded)
+    _assert_close_with_inf(gmin, fs._gmin_scan_ref(x, xsq, bias, q, metric=metric),
+                           GMIN_ATOL[storage])
+
+
+@pytest.mark.parametrize("where", ["rows", "query"])
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", ["cosine", "l2", "negative_inner_product"])
+def test_gmin_scan_huge_norms_and_dead_rows(cuda, metric, storage, where):
+    # rows of +-1e19 entries (their squared norms overflow to inf: l2 ranks
+    # +inf), scattered rows of norm 1e16, or a query of norm 1e20; a whole
+    # group of dead rows (+inf). The batch fails the overflow bound, the
+    # kernel's infinite minima are the plain version's, and its finite ones
+    # lie within atol of them in units of the size of the terms each rank
+    # sums (|x_r| |q_b| for the dot metrics, (|x_r| + |q_b|)^2 for l2): two
+    # f32 sums of a dot with large cancellation agree to a fraction of
+    # that, not of the dot
+    rng = np.random.default_rng(13)
+    x, _xsq, bias, q = _operands(K1_ROWS, 768, 40, "f32", "cpu", seed=14)
+    if where == "rows":
+        x[128:192] = torch.from_numpy(rng.choice([-1e19, 1e19], (64, 768)).astype(np.float32))
+        x[[7, 700, 1000]] *= 1e16
+    else:
+        q[3] *= 1e20
+    x[320:384] = 0.0
+    bias[320:384] = float("inf")
+    if storage == "bf16":
+        x = x.to(torch.bfloat16)
+    xsq = (x.float() ** 2).sum(dim=1)
+    x, xsq, bias, q = (t.to(cuda) for t in (x, xsq, bias, q))
+    gmin, bounded = fs.gmin_scan(x, xsq, bias, q, metric=metric)
+    torch.cuda.synchronize()
+    assert not bool(bounded)
+    want = fs._gmin_scan_ref(x, xsq, bias, q, metric=metric)
+    fin = torch.isfinite(want)
+    assert not bool(fin.all()) and bool(fin.any())
+    assert torch.equal(torch.isfinite(gmin), fin) and torch.equal(gmin[~fin], want[~fin])
+    xn, qn = x.double().norm(dim=1), q.double().norm(dim=1)
+    terms = (qn[:, None] + xn[None, :]) ** 2 if metric == "l2" else qn[:, None] * xn[None, :]
+    size = terms.view(q.shape[0], -1, fs.GROUP).amax(dim=-1).clamp_min(1.0)
+    err = (gmin.double() - want.double()).abs()
+    assert bool((err[fin] <= GMIN_ATOL[storage] * size[fin]).all())
+
+
+def test_gmin_scan_counts_its_operand_route(cuda):
+    # f32 and bf16 blocks of d = 768 are read in place by TMA; f32 rows of
+    # 127 values (508 bytes), bf16 rows of 100 (200 bytes) and an f32 view
+    # 4 bytes off a 16-byte boundary are copied to a 16-byte stride first
+    x, xsq, bias, q = _operands(1088, 768, 40, "f32", cuda)
+    before = dict(fs.ROUTES["gmin_scan"])
+    for xs in (x, x.to(torch.bfloat16)):
+        fs.gmin_scan(xs, xsq, bias, q, metric="cosine")
+    assert fs.ROUTES["gmin_scan"] == {"direct": before["direct"] + 2,
+                                      "padded": before["padded"]}
+    off = x.flatten()[1:1 + 1024 * 768].view(1024, 768)
+    assert off.data_ptr() % 16
+    cases = [(off, xsq[:1024].contiguous(), bias[:1024].contiguous(), q)]
+    for d, storage in ((127, "f32"), (100, "bf16")):
+        cases.append(_operands(1088, d, 5, storage, cuda, seed=d))
+    for args in cases:
+        gmin, _ = fs.gmin_scan(*args, metric="l2")
+        _assert_close_with_inf(gmin, fs._gmin_scan_ref(*args, metric="l2"),
+                               GMIN_ATOL["bf16" if args[0].dtype == torch.bfloat16 else "f32"])
+    torch.cuda.synchronize()
+    assert fs.ROUTES["gmin_scan"] == {"direct": before["direct"] + 2,
+                                      "padded": before["padded"] + 3}
+
+
+def test_gmin_scan_reads_a_transposed_query(cuda):
+    # a query block that is the transpose of a [d, B] tensor: its rows are
+    # not d elements apart, so the wrapper lays it out by rows before its
+    # parts reach TMA, which then reads them in place
+    x, xsq, bias, q = _operands(K1_ROWS, 768, 130, "f32", cuda, seed=21)
+    qt = q.t().contiguous().t()
+    assert not qt.is_contiguous() and torch.equal(qt, q)
+    before = dict(fs.ROUTES["gmin_scan"])
+    for xs in (x, x.to(torch.bfloat16)):
+        xss = (xs.float() ** 2).sum(dim=1)
+        storage = "bf16" if xs.dtype == torch.bfloat16 else "f32"
+        for metric in ("cosine", "l2"):
+            gmin, _ = fs.gmin_scan(xs, xss, bias, qt, metric=metric)
+            _assert_close_with_inf(gmin, fs._gmin_scan_ref(xs, xss, bias, q, metric=metric),
+                                   GMIN_ATOL[storage])
+    assert fs.ROUTES["gmin_scan"] == {"direct": before["direct"] + 4,
+                                      "padded": before["padded"]}
+
+
+def _near_tie_corpus(n=64 * 48, d=768, b=4, ties=20, seed=15):
+    """``(x, xsq, bias, lex_rank, q)`` numpy operands: unit rows and
+    queries; one row in each of ``ties`` groups has a dot of 0.9 + i * 1e-6
+    with query 0 (i = 0 .. ties - 1), every other row a dot of order 0.1:
+    more than GROUP_SLACK groups whose minima differ by 1e-6, so only a
+    scan as accurate as f32 selects the right ones. The CPU tests of K1's
+    3xTF32 arithmetic (``tests/test_torch_tf32_split.py``) share it."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = rng.normal(size=(b, d))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    for i in range(ties):
+        u = rng.normal(size=d)
+        u -= (u @ q[0]) * q[0]
+        u /= np.linalg.norm(u)
+        a = 0.9 + i * 1e-6
+        x[64 * (2 * i + 1) + i] = a * q[0] + np.sqrt(1.0 - a * a) * u
+    x, q = x.astype(np.float32), q.astype(np.float32)
+    xsq = np.sum(x * x, axis=1, dtype=np.float32)
+    lex_rank = rng.permutation(n).astype(np.int32)
+    return x, xsq, np.zeros(n, np.float32), lex_rank, q
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_fused_search_near_ties_on_card_match_cpu(cuda, metric):
+    cpu = [torch.from_numpy(a) for a in _near_tie_corpus()]
+    got = fs.fused_flat_search(*(t.to(cuda) for t in cpu), metric=metric, k=4)
+    want = fs.fused_flat_search(*cpu, metric=metric, k=4)
+    assert bool(got[3]) and bool(want[3])
+    assert torch.equal(got[0].cpu(), want[0])
+    assert want[0][0].tolist() == [64 * (2 * i + 1) + i for i in (19, 18, 17, 16)]

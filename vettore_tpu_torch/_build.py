@@ -106,7 +106,7 @@ def build() -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     signatures = {
-        "vt_gmin_scan": [p, i, p, p, p, p, p, i, i, i, i, p],
+        "vt_gmin_scan": [p, i, i, p, p, p, p, i, p, p, i, i, i, i, p],
         "vt_rescore": [p, i, p, p, p, p, p, p, i, i, i, i, i, p],
         "vt_int8_gmin_scan": [p, i, p, p, p, p, i, p, p, p, i, i, i, i, p],
         "vt_int8_rescore": [p, p, p, p, p, p, p, p, i, i, i, i, i, p],

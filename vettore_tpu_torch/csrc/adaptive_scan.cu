@@ -16,7 +16,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "s8_scan.cuh"
+#include "wgmma_scan.cuh"
 
 namespace {
 
@@ -63,8 +63,8 @@ __device__ __forceinline__ float stage_rank(float dot, float xsq, float qsq, int
 // per byte written: between the two roofs, with the FMA loop the larger
 // share on CUDA cores.
 //
-// Design: K1's. One block owns one 64-row group and a 128-query tile, so the
-// group-min needs no reduction across blocks. x (row stride ld, only the
+// Design: CUDA-core FMAs. One block owns one 64-row group and a 128-query
+// tile, so the group-min needs no reduction across blocks. x (row stride ld, only the
 // first `dims` columns read: no prefix copy) and q stage through shared
 // memory in d-chunks of 32; each of the 256 threads keeps a 4-row x 8-query
 // register tile of f32 FMA accumulators (no TF32: the counterpart of
@@ -75,8 +75,9 @@ __device__ __forceinline__ float stage_rank(float dot, float xsq, float qsq, int
 // same tile. Like _stage_gmin_body it runs no finiteness pass: the wrapper
 // proves per batch that no rank can overflow.
 //
-// Left for later: tensor cores (3xTF32 / bf16 wgmma fed by TMA) as for K1,
-// and writing the rank matrix in bf16 or only for the groups that can win.
+// Left for later: K1's tensor-core mainloop (csrc/wgmma_scan.cuh, its Bf16
+// and Tf32x3 policies), and writing the rank matrix in bf16 or only for the
+// groups that can win.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -176,12 +177,12 @@ stage_gmin_scan_kernel(const T* __restrict__ x, const float* __restrict__ xsq,
 // reads 0.77 GB of signs and writes the 1.02 GB int16 matrix: 0.545 ms at
 // 3.35 TB/s, above the 787 G int8 operations' 0.398 ms on the tensor cores.
 //
-// Design: the dots run on the shared s8 wgmma mainloop (csrc/s8_scan.cuh:
-// a persistent grid, a TMA ring that loads the next tile during this one's
-// epilogue, tiles of 128 rows x up to 256 queries, rows read once from
-// device memory). The epilogue works from the accumulator registers: it
-// turns each dot into its Hamming value in place, takes the int32 group
-// minima as K3 does (s8::column_min), and writes the int16 values 64 query
+// Design: the dots run on the shared tensor-core scan skeleton with its s8
+// policy (csrc/wgmma_scan.cuh: a persistent grid, a TMA ring that loads the
+// next tile during this one's epilogue, tiles of 128 rows x up to 256
+// queries, rows read once from device memory). The epilogue works from the
+// accumulator registers: it turns each dot into its Hamming value in place,
+// takes the int32 group minima as K3 does (wg::column_min), and writes the int16 values 64 query
 // columns at a time to a tile in shared memory as [query][row] (a 144-byte
 // row stride: conflict-free), from which each query's 64 values leave as
 // one coalesced 128-byte row of the [B, N] matrix, 16 bytes a lane, so the
@@ -202,23 +203,23 @@ struct SignEpilogue {
   };
 
   template <int QN>
-  __device__ Pre prefetch(const s8::Frame& f) const {
+  __device__ Pre prefetch(const wg::Frame& f) const {
     Pre p;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) p.valid[h] = valid[(int64_t)f.g * GROUP + s8::acc_row(f.t, h)];
+    for (int h = 0; h < 2; ++h) p.valid[h] = valid[(int64_t)f.g * GROUP + wg::acc_row(f.t, h)];
     return p;
   }
 
   template <int QN>
-  __device__ void finish(int (&acc)[QN / 2], const s8::Frame& f, const Pre& p) const {
-    constexpr int LD = s8::TILE_LD;
+  __device__ void finish(int (&acc)[QN / 2], const wg::Frame& f, const Pre& p) const {
+    constexpr int LD = wg::TILE_LD;
     const int64_t row0 = (int64_t)f.g * GROUP;
 #pragma unroll
     for (int i = 0; i < QN / 2; ++i)
       acc[i] = p.valid[(i / 2) % 2] != 0 ? (d - acc[i]) >> 1 : BIG16;
-    s8::named_sync(f.bar, 128);  // the previous tile's readers of the region are done
+    wg::named_sync(f.bar, 128);  // the previous tile's readers of the region are done
     int* red = static_cast<int*>(f.red);
-    s8::column_min<QN, int>(acc, red, f.t, f.bar);
+    wg::column_min<QN, int>(acc, red, f.t, f.bar);
     for (int col = f.t; col < QN; col += 128)
       if (f.q0 + col < b) gmin[(int64_t)(f.q0 + col) * ng + f.g] = red[col];
     // 64 query columns at a time through the int16 tile, [query][row]: each
@@ -231,16 +232,16 @@ struct SignEpilogue {
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int c = 0; c < 2; ++c)
-            f.tile[(s8::acc_col(f.t, j, c) - 64 * part) * LD + s8::acc_row(f.t, h)] =
+            f.tile[(wg::acc_col(f.t, j, c) - 64 * part) * LD + wg::acc_row(f.t, h)] =
                 (int16_t)acc[4 * j + 2 * h + c];
-      s8::named_sync(f.bar, 128);
+      wg::named_sync(f.bar, 128);
       for (int i = f.t; i < 64 * 8; i += 128) {
         const int col = i / 8, chunk = i % 8, qb = f.q0 + 64 * part + col;
         if (qb < b)
           *reinterpret_cast<uint4*>(ham + (int64_t)qb * n + row0 + 8 * chunk) =
               *reinterpret_cast<const uint4*>(f.tile + col * LD + 8 * chunk);
       }
-      s8::named_sync(f.bar, 128);
+      wg::named_sync(f.bar, 128);
     }
   }
 };
@@ -320,7 +321,8 @@ int vt_sign_scan(const int8_t* signs, int lds, const int8_t* valid, const int8_t
                  int ldq, int* gmin, int16_t* ham, int n, int d, int b, void* stream) {
   if (d >= BIG16 / 2) return (int)cudaErrorInvalidValue;
   const SignEpilogue epi{valid, gmin, ham, n, n / GROUP, b, d};
-  return (int)s8::scan(signs, lds, qsigns, ldq, n, d, b, epi, static_cast<cudaStream_t>(stream));
+  return (int)wg::scan<wg::S8>(signs, lds, qsigns, nullptr, ldq, n, d, b, epi,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // mat: [b, rows, row_bytes] bytes; gidx: [b, c] int32; out: [b, c, row_bytes]

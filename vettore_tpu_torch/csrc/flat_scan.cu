@@ -20,6 +20,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma_scan.cuh"
+
 namespace {
 
 constexpr int GROUP = 64;  // rows per selection group
@@ -38,112 +40,81 @@ __device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
 // matrix never reaches device memory, only the [B, N/64] group minima.
 //
 // Bound: operations. At the main-path shape (N = 1,000,448, d = 768,
-// B = 512) it does 2*N*d*B = 0.79 TFLOP against 3 GB (f32) of x, about 250
-// FLOP per byte, so the arithmetic rate decides.
+// B = 512) it does 2*N*d*B = 787 G operations. On bf16 blocks the bf16
+// tensor cores (989 TFLOP/s) put the bound at 0.80 ms (the 1.54 GB block
+// alone would take 0.46 ms). On f32 blocks the products
+// must keep f32's accuracy (the counterpart of Precision.HIGHEST), which the
+// tensor cores give as three TF32 products: 3 x 787 G at 495 TFLOP/s,
+// 4.77 ms (the 3.07 GB block alone 0.92 ms).
 //
-// Design: one block per (64-row group, 128-query tile), so one block owns a
-// whole group and no reduction crosses blocks. x and q tiles are staged
-// through shared memory in d-chunks of 32; each of the 256 threads keeps a
-// 4-row x 8-query register tile of f32 FMA accumulators. The f32 path uses
-// plain FMAs (no TF32: the counterpart of Precision.HIGHEST); the bf16 path
-// widens each element with __bfloat162float and accumulates in f32, so every
-// product of two bf16 values is exact. The epilogue applies the rank formula
-// and the bias, takes each thread's min over its 4 rows, then the min over
-// the 16 row lanes through shared memory. Like _gmin_body it runs no
-// finiteness pass: the caller proves per batch (Cauchy-Schwarz bound) that
-// no rank can overflow.
-//
-// Left for later: tensor cores. The f32 path could run 3xTF32 split
-// products on wgmma, and the bf16 path plain bf16 wgmma fed by TMA from a
-// multi-stage shared-memory ring, with a persistent grid; this kernel uses
-// CUDA-core FMAs only.
+// Design: the shared tensor-core scan skeleton (csrc/wgmma_scan.cuh: a
+// persistent grid, a TMA ring, tiles of 128 rows x up to 256 queries), with
+// its Bf16 policy for bf16 blocks (x as stored against the query rounded to
+// bf16, exact products in f32) and its Tf32x3 policy for f32 blocks (the
+// wrapper splits the query into q_hi + q_lo once per batch; the consumers
+// split their rows in registers). The epilogue is K3's without the scales:
+// each thread turns its 2 rows x QN/4 accumulators into ranks in place
+// (the rows' norms and biases and the tile's query norms loaded before the
+// mainloop), and the group-min is taken in the thread, across lanes by
+// shuffles and across the 4 warps through shared memory
+// (wg::column_min), so it never leaves the warpgroup. Like _gmin_body it
+// runs no finiteness pass: the wrapper proves per batch (Cauchy-Schwarz
+// bound) that no rank can overflow.
 // ---------------------------------------------------------------------------
 
-constexpr int K1_QT = 128;      // queries per block
-constexpr int K1_DC = 32;       // d-chunk staged through shared memory
-constexpr int K1_THREADS = 256; // 16 row lanes x 16 query lanes
-constexpr int K1_RPT = GROUP / 16;  // rows per thread (4)
-constexpr int K1_QPT = K1_QT / 16;  // queries per thread (8)
+struct FlatEpilogue {
+  const float* xsq;
+  const float* bias;
+  const float* qsq;
+  float* gmin;
+  int ng, b, l2;
 
-template <typename T>
-__global__ void __launch_bounds__(K1_THREADS)
-gmin_scan_kernel(const T* __restrict__ x, const float* __restrict__ xsq,
-                 const float* __restrict__ bias, const float* __restrict__ q,
-                 const float* __restrict__ qsq, float* __restrict__ gmin,
-                 int ng, int d, int b, int l2) {
-  // +1 pads keep the transposed stores free of bank conflicts
-  __shared__ float xs[K1_DC][GROUP + 1];
-  __shared__ float qs[K1_DC][K1_QT + 1];
-  __shared__ float red[16][K1_QT];
+  // loaded before the mainloop, used after it: the norm and bias of the
+  // thread's two rows, and the tile's query norms at columns t and t + 128
+  // (staged in shared memory by finish)
+  struct Pre {
+    float xr[2], br[2], qv[2];
+  };
 
-  const int g = blockIdx.x;
-  const int q0 = blockIdx.y * K1_QT;
-  const int t = threadIdx.x;
-  const int tx = t % 16;  // query lane: queries tx + 16*j
-  const int ty = t / 16;  // row lane: rows ty + 16*i
-  const int64_t row0 = (int64_t)g * GROUP;
-
-  float acc[K1_RPT][K1_QPT];
+  template <int QN>
+  __device__ Pre prefetch(const wg::Frame& f) const {
+    Pre p;
 #pragma unroll
-  for (int i = 0; i < K1_RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < K1_QPT; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += K1_DC) {
-    // a warp reads 32 consecutive elements of one row: coalesced
-#pragma unroll
-    for (int e = 0; e < GROUP * K1_DC / K1_THREADS; ++e) {
-      const int idx = t + e * K1_THREADS;
-      const int r = idx / K1_DC, c = idx % K1_DC, k = k0 + c;
-      xs[c][r] = k < d ? load_x(x + (row0 + r) * d + k) : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int64_t r = (int64_t)f.g * GROUP + wg::acc_row(f.t, h);
+      p.xr[h] = xsq[r];
+      p.br[h] = bias[r];
+      const int qb = f.q0 + f.t + 128 * h;
+      p.qv[h] = qb < b ? qsq[qb] : 0.f;
     }
-#pragma unroll
-    for (int e = 0; e < K1_QT * K1_DC / K1_THREADS; ++e) {
-      const int idx = t + e * K1_THREADS;
-      const int r = idx / K1_DC, c = idx % K1_DC, k = k0 + c, qb = q0 + r;
-      qs[c][r] = (k < d && qb < b) ? __ldg(q + (int64_t)qb * d + k) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < K1_DC; ++c) {
-      float a[K1_RPT], w[K1_QPT];
-#pragma unroll
-      for (int i = 0; i < K1_RPT; ++i) a[i] = xs[c][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < K1_QPT; ++j) w[j] = qs[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < K1_RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < K1_QPT; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
+    return p;
   }
 
-  float part[K1_QPT];
+  template <int QN>
+  __device__ void finish(float (&acc)[QN / 2], const wg::Frame& f, const Pre& p) const {
+    // the previous tile's readers of side and red passed column_min's barriers
 #pragma unroll
-  for (int j = 0; j < K1_QPT; ++j) part[j] = INFINITY;
+    for (int h = 0; h < 2; ++h)
+      if (f.t + 128 * h < QN) f.side[f.t + 128 * h] = p.qv[h];
+    wg::named_sync(f.bar, 128);
 #pragma unroll
-  for (int i = 0; i < K1_RPT; ++i) {
-    const int64_t r = row0 + ty + 16 * i;
-    const float xr = xsq[r], br = bias[r];
+    for (int j = 0; j < QN / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < K1_QPT; ++j) {
-      const int qb = q0 + tx + 16 * j;
-      const float qv = qb < b ? qsq[qb] : 0.f;
-      const float rank = (l2 ? xr - 2.f * acc[i][j] + qv : -acc[i][j]) + br;
-      part[j] = fminf(part[j], rank);
-    }
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = wg::acc_col(f.t, j, c);
+          float& v = acc[4 * j + 2 * h + c];
+          const float rank =
+              l2 ? __fadd_rn(__fsub_rn(p.xr[h], __fmul_rn(2.f, v)), f.side[col]) : -v;
+          v = __fadd_rn(rank, p.br[h]);
+        }
+    float* red = static_cast<float*>(f.red);
+    wg::column_min<QN, float>(acc, red, f.t, f.bar);
+    for (int col = f.t; col < QN; col += 128)
+      if (f.q0 + col < b) gmin[(int64_t)(f.q0 + col) * ng + f.g] = red[col];
   }
-#pragma unroll
-  for (int j = 0; j < K1_QPT; ++j) red[ty][tx + 16 * j] = part[j];
-  __syncthreads();
-  if (t < K1_QT && q0 + t < b) {
-    float m = red[0][t];
-#pragma unroll
-    for (int r = 1; r < 16; ++r) m = fminf(m, red[r][t]);
-    gmin[(int64_t)(q0 + t) * ng + g] = m;
-  }
-}
+};
 
 // ---------------------------------------------------------------------------
 // K2 rescore: out[b, s, r] = rank(x[gidx[b, s]*64 + r] . q[b]) + bias,
@@ -201,23 +172,20 @@ rescore_kernel(const T* __restrict__ x, const float* __restrict__ xsq,
 
 extern "C" {
 
-// x: [n, d] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); xsq, bias: [n] f32;
-// q: [b, d] f32 (already rounded to bf16 values by the caller when x is
-// bf16); qsq: [b] f32; gmin: [b, n/64] f32 output. n % 64 == 0.
-int vt_gmin_scan(const void* x, int x_bf16, const float* xsq, const float* bias,
-                 const float* q, const float* qsq, float* gmin, int n, int d,
-                 int b, int l2, void* stream) {
-  if (n <= 0 || n % GROUP || d <= 0 || b <= 0 || (b + K1_QT - 1) / K1_QT > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(n / GROUP, (b + K1_QT - 1) / K1_QT);
+// x: [n, d] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1) with row stride ldx
+// bytes; xsq, bias: [n] f32; q: [b, d] with row stride ldq bytes, the
+// query rounded to bf16 for bf16 blocks, its TF32 part q_hi for f32 blocks,
+// whose remainder q - q_hi is q_lo (f32, stride ldq; unused for bf16);
+// qsq: [b] f32 of the f32 query; gmin: [b, n/64] f32 output. n % 64 == 0;
+// x, q and q_lo 16-byte aligned, ldx and ldq multiples of 16 (TMA's rule;
+// the wrapper pads other operands).
+int vt_gmin_scan(const void* x, int ldx, int x_bf16, const float* xsq, const float* bias,
+                 const void* q, const void* q_lo, int ldq, const float* qsq, float* gmin, int n,
+                 int d, int b, int l2, void* stream) {
+  const FlatEpilogue epi{xsq, bias, qsq, gmin, n / GROUP, b, l2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    gmin_scan_kernel<__nv_bfloat16><<<grid, K1_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), xsq, bias, q, qsq, gmin, n / GROUP, d, b, l2);
-  else
-    gmin_scan_kernel<float><<<grid, K1_THREADS, 0, st>>>(
-        static_cast<const float*>(x), xsq, bias, q, qsq, gmin, n / GROUP, d, b, l2);
-  return (int)cudaGetLastError();
+  if (x_bf16) return (int)wg::scan<wg::Bf16>(x, ldx, q, nullptr, ldq, n, d, b, epi, st);
+  return (int)wg::scan<wg::Tf32x3>(x, ldx, q, q_lo, ldq, n, d, b, epi, st);
 }
 
 // gidx: [b, gsel] int32 group indices; q: [b, d] f32 (never rounded);

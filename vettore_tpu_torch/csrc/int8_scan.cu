@@ -16,7 +16,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "s8_scan.cuh"
+#include "wgmma_scan.cuh"
 
 namespace {
 
@@ -39,16 +39,17 @@ constexpr int THREADS = 256;   // K4: 8 warps
 // H100's int8 tensor-core peak (1,979 TOP/s) puts the bound at 0.398 ms, the
 // bytes at 0.23 ms.
 //
-// Design: the int8 tensor cores. The dots run on the shared s8 wgmma
-// mainloop (csrc/s8_scan.cuh: a persistent grid, a TMA ring, tiles of 128
-// rows x up to 256 queries). The dot is an exact int32, so the result is
-// bit-equal to the plain version only if the epilogue rounds in the same
-// order: it is written with __fmul_rn / __fsub_rn / __fadd_rn, which nvcc
-// never contracts into an FMA, straight from the accumulator registers.
+// Design: the int8 tensor cores. The dots run on the shared tensor-core
+// scan skeleton with its s8 policy (csrc/wgmma_scan.cuh: a persistent
+// grid, a TMA ring, tiles of 128 rows x up to 256 queries). The dot is an
+// exact int32, so the result is bit-equal to the plain version only if the
+// epilogue rounds in the same order: it is written with __fmul_rn /
+// __fsub_rn / __fadd_rn, which nvcc never contracts into an FMA, straight
+// from the accumulator registers.
 // Each thread turns its 2 rows x QN/4 columns into ranks in place (the
 // tile's query scales and norms staged in shared memory first); the
 // group-min is taken in the thread, across the lanes by shuffles and across
-// the 4 warps through shared memory (s8::column_min). No finiteness pass:
+// the 4 warps through shared memory (wg::column_min). No finiteness pass:
 // the wrapper proves per batch that no rank can overflow (_int8_bounded).
 // ---------------------------------------------------------------------------
 
@@ -69,11 +70,11 @@ struct Int8Epilogue {
   };
 
   template <int QN>
-  __device__ Pre prefetch(const s8::Frame& f) const {
+  __device__ Pre prefetch(const wg::Frame& f) const {
     Pre p;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int64_t r = (int64_t)f.g * GROUP + s8::acc_row(f.t, h);
+      const int64_t r = (int64_t)f.g * GROUP + wg::acc_row(f.t, h);
       p.sr[h] = scale[r];
       p.xr[h] = xsq[r];
       p.br[h] = bias[r];
@@ -85,7 +86,7 @@ struct Int8Epilogue {
   }
 
   template <int QN>
-  __device__ void finish(int (&acc)[QN / 2], const s8::Frame& f, const Pre& p) const {
+  __device__ void finish(int (&acc)[QN / 2], const wg::Frame& f, const Pre& p) const {
     const float* sr = p.sr;
     const float* xr = p.xr;
     const float* br = p.br;
@@ -96,14 +97,14 @@ struct Int8Epilogue {
         f.side[f.t + 128 * h] = p.qs[h];
         f.side[QN + f.t + 128 * h] = p.qv[h];
       }
-    s8::named_sync(f.bar, 128);
+    wg::named_sync(f.bar, 128);
 #pragma unroll
     for (int j = 0; j < QN / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int col = s8::acc_col(f.t, j, c);
+          const int col = wg::acc_col(f.t, j, c);
           int& v = acc[4 * j + 2 * h + c];
           const float approx = __fmul_rn(__fmul_rn(__int2float_rn(v), sr[h]), f.side[col]);
           const float rank =
@@ -111,7 +112,7 @@ struct Int8Epilogue {
           v = __float_as_int(__fadd_rn(rank, br[h]));
         }
     float* red = static_cast<float*>(f.red);
-    s8::column_min<QN, float>(acc, red, f.t, f.bar);
+    wg::column_min<QN, float>(acc, red, f.t, f.bar);
     for (int col = f.t; col < QN; col += 128)
       if (f.q0 + col < b) gmin[(int64_t)(f.q0 + col) * ng + f.g] = red[col];
   }
@@ -185,7 +186,8 @@ int vt_int8_gmin_scan(const int8_t* x8, int ldx, const float* scale, const float
                       const float* bias, const int8_t* q8, int ldq, const float* qscale,
                       const float* qsq, float* gmin, int n, int d, int b, int l2, void* stream) {
   const Int8Epilogue epi{scale, xsq, bias, qscale, qsq, gmin, n / GROUP, b, l2};
-  return (int)s8::scan(x8, ldx, q8, ldq, n, d, b, epi, static_cast<cudaStream_t>(stream));
+  return (int)wg::scan<wg::S8>(x8, ldx, q8, nullptr, ldq, n, d, b, epi,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // q: [b, d] f32 (unquantized); qsq: [b] f32; gidx: [b, gsel] int32;

@@ -5,7 +5,10 @@ carried by two hand-written CUDA kernels (``csrc/flat_scan.cu``), each
 beside its plain PyTorch version in this module:
 
 * **K1** ``gmin_scan`` — matmul, rank conversion and a 64-row group-min in
-  one pass; only ``[B, N/64]`` group minima reach device memory. The kernel
+  one pass; only ``[B, N/64]`` group minima reach device memory. The
+  products run on the tensor cores (``csrc/wgmma_scan.cuh``): bf16 blocks
+  as bf16 products, f32 blocks as three TF32 products of split operands
+  (3xTF32, about f32's accuracy; no single-pass TF32). The kernel
   epilogue carries no finiteness checks: overflow safety is proven per batch
   OUTSIDE the kernel by a Cauchy-Schwarz norm bound (queries that could
   overflow an f32 accumulator flag ``ok=False`` → f64 host oracle).
@@ -38,10 +41,10 @@ The adaptive pipelines (``ops/pipeline.py``) run three more kernels
 (``csrc/int8_scan.cu``):
 
 * **K3** ``int8_gmin_scan`` — int8 x int8 exact int32 dots, dequantized by
-  the row and query scales, the K1 rank and its 64-row group minima. K3
-  and K6 share one int8 tensor-core mainloop (``csrc/s8_scan.cuh``), fed by
-  TMA; ``ROUTES`` counts whether their operands were read in place or
-  first copied to a stride TMA can address;
+  the row and query scales, the K1 rank and its 64-row group minima. K1,
+  K3 and K6 share one tensor-core scan skeleton (``csrc/wgmma_scan.cuh``),
+  fed by TMA; ``ROUTES`` counts whether their operands were read in place
+  or first copied to a stride TMA can address;
 * **K4** ``int8_rescore`` — the selected groups' int8 rows against the full
   f32 query, dequantized after the sum.
 
@@ -87,10 +90,11 @@ _SAFE_LOG = 86.0  # log(2.2e37) >= log(|dot|) bound via Cauchy-Schwarz
 LAUNCHES = {"gmin_scan": 0, "rescore": 0, "int8_gmin_scan": 0, "int8_rescore": 0,
             "stage_gmin_scan": 0, "sign_scan": 0, "extract_group_rows": 0}
 
-#: launches of the two int8 tensor-core scans by operand route: "direct"
-#: when TMA reads both operands in place, "padded" when one of them first
-#: went through ``_tma_rows``'s copy
-ROUTES = {"int8_gmin_scan": {"direct": 0, "padded": 0},
+#: launches of the tensor-core scans by operand route: "direct" when TMA
+#: reads every operand in place, "padded" when one of them first went
+#: through ``_tma_rows``'s copy
+ROUTES = {"gmin_scan": {"direct": 0, "padded": 0},
+          "int8_gmin_scan": {"direct": 0, "padded": 0},
           "sign_scan": {"direct": 0, "padded": 0}}
 
 
@@ -140,10 +144,17 @@ def _rank(dots, xsq, qsq, metric):
 # ---------------------------------------------------------------------------
 
 
+def _bf16_query(q):
+    """The query of a scan of bf16 storage: rounded to bf16, so the scan
+    sees bf16 x bf16 products (the f32 query still gives qsq). The kernels
+    take it as it is, the plain versions widened back to f32."""
+    return q.to(torch.bfloat16)
+
+
 def _scan_query(x, q):
-    """The query K1 multiplies with: rounded to bf16 under bf16 storage, so
-    the scan sees bf16 x bf16 products (the f32 query still gives qsq)."""
-    return q.to(torch.bfloat16).float() if x.dtype == torch.bfloat16 else q
+    """The query K1 multiplies with, in f32: ``_bf16_query`` under bf16
+    storage, else ``q``."""
+    return _bf16_query(q).float() if x.dtype == torch.bfloat16 else q
 
 
 def _gmin_scan_ref(x, xsq, bias, q, *, metric):
@@ -169,13 +180,25 @@ def _bounded(xsq, qsq):
     return ((qsq < _SAFE_LIM) & (xsq_max < _SAFE_LIM) & (qlog + xlog < _SAFE_LOG)).all()
 
 
+def tf32_split(v):
+    """``(hi, lo)`` of an f32 tensor: ``hi`` is ``v`` rounded to TF32 (to
+    nearest, ties away from zero, as ``cvt.rna.tf32.f32``: its 13 low
+    mantissa bits are zero) and ``lo = v - hi``, exact in f32, so ``hi + lo
+    == v``. K1's f32 kernel takes the query in these two parts."""
+    bits = v.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, v - hi
+
+
 def gmin_scan(x, xsq, bias, q, *, metric):
     """Group minima of the rank matrix: ``([B, N/64] f32, bounded)``.
 
     ``x`` [N, d] f32 or bf16, ``xsq`` / ``bias`` [N] f32, ``q`` [B, d] f32.
     Under bf16 storage the query is rounded to bf16 for the scan (the
     matmul sees bf16 x bf16 products); ``qsq`` always comes from the f32
-    query. ``bounded`` is False when the batch fails the overflow bound."""
+    query. ``bounded`` is False when the batch fails the overflow bound.
+    On the card f32 blocks take 3xTF32 products: the group minima stay
+    within ``K1_ATOL`` of the plain f32 version's."""
     _check_operands(x, xsq, bias, q)
     qsq = (q * q).sum(dim=1)
     bounded = _bounded(xsq, qsq)
@@ -185,16 +208,22 @@ def gmin_scan(x, xsq, bias, q, *, metric):
         raise ValueError(f"gmin_scan runs on cuda or cpu tensors, not {x.device}")
     from .. import _build
 
+    if not all(t.is_contiguous() for t in (x, xsq, bias)):
+        raise ValueError("kernel operands must be contiguous")
     n, d = x.shape
     b = q.shape[0]
-    qs = _scan_query(x, q).contiguous()
+    q = q.contiguous()
+    parts = (_bf16_query(q),) if x.dtype == torch.bfloat16 else tf32_split(q)
+    xt, ldx, x_copied = _tma_rows(x)
+    qts = [_tma_rows(t) for t in parts]
     gmin = torch.empty((b, n // GROUP), dtype=torch.float32, device=x.device)
     lib = _build.load()
-    code = lib.vt_gmin_scan(*_launch_args(x, xsq, bias, qs, qsq), gmin.data_ptr(),
-                            n, d, b, int(_is_l2(metric)),
-                            torch.cuda.current_stream(x.device).cuda_stream)
+    code = lib.vt_gmin_scan(xt.data_ptr(), ldx, int(x.dtype == torch.bfloat16), xsq.data_ptr(),
+                            bias.data_ptr(), qts[0][0].data_ptr(), qts[-1][0].data_ptr(),
+                            qts[0][1], qsq.data_ptr(), gmin.data_ptr(), n, d, b,
+                            int(_is_l2(metric)), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "gmin_scan")
-    LAUNCHES["gmin_scan"] += 1
+    _count_route("gmin_scan", x_copied, *(copied for _t, _ld, copied in qts))
     return gmin, bounded
 
 
@@ -381,18 +410,22 @@ def _check_int8_operands(x8, scale, xsq, bias, q, q_dtype):
 
 
 def _tma_rows(t):
-    """``t`` [rows, d] int8 as TMA can read it: ``(rows, row stride in bytes,
-    copied)``. TMA needs a 16-byte aligned base and a row stride that is a
-    multiple of 16 bytes; any other block (a width off 16, a view at an odd
-    offset) is copied into a zero-padded one with the next such stride. The
-    kernel reads only the first ``d`` bytes of each row."""
-    d = t.shape[1]
-    if d % 16 == 0 and t.data_ptr() % 16 == 0:
-        return t, d, False
-    ld = -(-d // 16) * 16
+    """``t`` [rows, d] (contiguous, any element size) as TMA can read it:
+    ``(rows, row stride in bytes, copied)``. TMA needs a 16-byte aligned
+    base and a row stride that is a multiple of 16 bytes; any other block (a
+    row of bytes off 16, a view at an odd offset) is copied into a
+    zero-padded one with the next such stride. The kernel reads only the
+    first ``d`` elements of each row. A tensor that is not contiguous
+    raises: its row stride is not ``d`` elements."""
+    if not t.is_contiguous():
+        raise ValueError("kernel operands must be contiguous")
+    d, size = t.shape[1], t.element_size()
+    if (d * size) % 16 == 0 and t.data_ptr() % 16 == 0:
+        return t, d * size, False
+    ld = -(-d * size // 16) * 16 // size
     padded = t.new_zeros((t.shape[0], ld))
     padded[:, :d] = t
-    return padded, ld, True
+    return padded, ld * size, True
 
 
 def _count_route(name, *copied):
