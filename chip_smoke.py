@@ -15,17 +15,18 @@ Phases (each prints one line; any failure exits non-zero):
    median times of both, and ``torch.matmul`` on K1's operands (f32 with
    TF32 off, and bf16: the product alone, a yardstick, not K1's function);
 2b. adaptive kernels at the same N, d, B: K5 ``stage_gmin_scan`` (dims =
-   128; cosine and l2, f32 and bf16), K6 ``fused_sign_scan`` and K7
-   ``extract_group_rows`` (at the funnel's and the quantized mode's
-   shapes) against their plain versions, with median times of both, K6's
-   operand route and ``torch._int_mm`` on K6's operands (the int8 product
-   alone: a yardstick, not K6's function);
+   128; cosine and l2, f32 and bf16, all on the direct TMA route), K6
+   ``fused_sign_scan`` and K7 ``extract_group_rows`` (at the funnel's and
+   the quantized mode's shapes) against their plain versions, with median
+   times of both, K6's operand route and ``torch._int_mm`` on K6's
+   operands (the int8 product alone: a yardstick, not K6's function);
 2c. K3 ``int8_gmin_scan`` (bit-equal; its route and the ``torch._int_mm``
    yardstick as K6's) and K4 ``int8_rescore`` at the same
    N, d, B (cosine and l2), and the MaxSim kernel ``maxsim_rank_scan`` at
    BASELINE config 5's shape (N = 100,352 docs x 32 tokens x 128 d, 64 sets
    of 4 query tokens: bf16 and f32 blocks of full docs, and an f32 block with
-   random token counts and dead docs) against their plain versions;
+   random token counts and dead docs; the token norms given as the scan
+   cache keeps them) against their plain versions;
 3. BASELINE config 1: 100k x 384 cosine f32, limit 10, 64 queries, against
    the oracle; single-query ``search`` equals ``search_batch``;
 4. headline scale: 1M x 768 cosine f32 clustered corpus, batch 512, limit 10:
@@ -37,10 +38,13 @@ Phases (each prints one line; any failure exits non-zero):
    its block): quantized candidates=500 and funnel stages [128, 256, 384]
    candidates=200, limit 10, batch 512, sync and device entry points;
    oracle parity on 16 queries, no host route, the K5/K6/K7 launch counts
-   grown (K6 on the direct TMA route), times per batch, a
+   grown (K5 and K6 on the direct TMA route), times per batch, a
    ``torch.profiler`` trace of three batches of
    each device path (device busy time, idle share, top kernels), overlap@10
-   against phase 4's exact results;
+   against phase 4's exact results; then the funnel pipeline
+   (``ops/pipeline.funnel_pipeline_batch``) over a bf16 copy of the block,
+   which runs K5 on bf16 rows: its launches, route, ms per batch and
+   overlap@10 with the funnel oracle;
 4c. ``storage_view("int8")`` of phase 4's index: overlap@10 against exact
    f32 on 32 queries, no host route, the K3/K4 launch counts grown (K3 on
    the direct TMA route), ms per device batch of 512 and its
@@ -51,8 +55,10 @@ Phases (each prints one line; any failure exits non-zero):
    128 d through ``put_tokens``, 128 query sets of 4 tokens, limit 10, batch
    64; ids equal a float64 MaxSim oracle on 8 sets, no host route, the
    MaxSim launch count grown by the batches and by one single-set
-   ``multi_vector_search``, ms per batch, a ``torch.profiler`` split of one
-   batch; then a small ragged corpus against the oracle.
+   ``multi_vector_search``, all on the direct TMA route, ms per batch, a
+   ``torch.profiler`` split of one batch; then a small ragged corpus (an f32
+   token block: the 3xTF32 kernel) against the oracle, its launches counted
+   and direct too.
 
 The last two lines of standard output are a JSON summary of the kernels
 (each with its launches on its path, max abs error against its plain
@@ -232,8 +238,10 @@ def adaptive_kernels(torch, fs, select, x32, bias, q, card):
     path's shapes. Returns (max abs errors by kernel, median ms of the main
     configurations: K5 f32 cosine, K6, K7 at the quantized mode's shape)."""
     dims = FUNNEL_STAGES[0]
-    errs = {"stage_gmin_scan": 0.0, "sign_scan": 0.0, "extract_group_rows": 0.0}
+    errs = {"stage_gmin_scan": 0.0, "stage_gmin_scan_bf16": 0.0, "sign_scan": 0.0,
+            "extract_group_rows": 0.0}
     times = {}
+    reset_counts(fs)
     for storage in ("f32", "bf16"):
         x = x32 if storage == "f32" else x32.to(torch.bfloat16)
         xsq = (x[:, :dims].float() ** 2).sum(dim=1)
@@ -248,18 +256,22 @@ def adaptive_kernels(torch, fs, select, x32, bias, q, card):
             del refs
             assert err <= K5_ATOL[storage], f"K5 {storage} {metric} err {err}"
             assert bool(bounded), "unit-norm data must pass the overflow bound"
-            errs["stage_gmin_scan"] = max(errs["stage_gmin_scan"], err)
+            k5_name = "stage_gmin_scan" if storage == "f32" else "stage_gmin_scan_bf16"
+            errs[k5_name] = max(errs[k5_name], err)
             k5 = cuda_ms(torch, lambda: fs.stage_gmin_scan(x, xsq, bias, q, metric=metric,
                                                            dims=dims))
             k5_plain = cuda_ms(torch, lambda: fs._stage_gmin_scan_ref(x, xsq, bias, q,
                                                                       metric=metric, dims=dims))
             log(f"  K5 stage_gmin_scan {storage} {metric} dims={dims}: err {err:.3g} (atol "
                 f"{K5_ATOL[storage]}), {k5:.3f} ms vs plain {k5_plain:.3f} ms {card}")
+            if metric == "cosine":
+                times[f"k5_{storage}"], times[f"k5_{storage}_plain"] = k5, k5_plain
             if (storage, metric) == ("f32", "cosine"):
-                times["k5"], times["k5_plain"] = k5, k5_plain
                 funnel_gmin, funnel_rank = gmin, rank
             del gmin, rank
         del x
+    routes = fs.ROUTES["stage_gmin_scan"]
+    assert routes == {"direct": fs.LAUNCHES["stage_gmin_scan"], "padded": 0}, routes
     b, n = funnel_rank.shape
     ng = n // fs.GROUP
 
@@ -298,16 +310,19 @@ def adaptive_kernels(torch, fs, select, x32, bias, q, card):
         f"{times['k6_int_mm']:.3f} ms; routes {fs.ROUTES['sign_scan']} {card}")
     times["k7"], times["k7_plain"], times["k7_lib"] = k7_case(
         ham16.view(b, ng, fs.GROUP), gmin6, QUANT_C, "quantized")
+    log(f"  K5 routes {routes} (every K5 call above) {card}")
     return errs, times
 
 
-def reset_counts(fs):
-    """Zeroes the kernels' launch counts and K3's and K6's route counts."""
-    for name in fs.LAUNCHES:
-        fs.LAUNCHES[name] = 0
-    for routes in fs.ROUTES.values():
-        for route in routes:
-            routes[route] = 0
+def reset_counts(*modules):
+    """Zeroes the launch and operand-route counts of the kernel wrappers of
+    ``modules`` (``ops.flat_scan``, ``ops.maxsim``)."""
+    for module in modules:
+        for name in module.LAUNCHES:
+            module.LAUNCHES[name] = 0
+        for routes in module.ROUTES.values():
+            for route in routes:
+                routes[route] = 0
 
 
 def distinct_rows(gidx):
@@ -382,8 +397,8 @@ def mv_block(torch, dev, gen, n, t, d, dtype):
 def maxsim_kernels(torch, ms, card):
     """Phase 2c, MaxSim: the kernel against its plain version at config 5's
     shape (cap of 100,000 docs, 32 tokens, d = 128, 64 sets of 4 tokens).
-    Returns (max abs error, max relative error, times and bound of the full
-    bf16 case)."""
+    Returns (max abs errors, max relative errors, times and bounds of the
+    full bf16 and full f32 cases), by kernel row name."""
     from vettore_tpu_torch.collection import _cap_at_least
 
     dev = torch.device(DEVICE)
@@ -392,7 +407,8 @@ def maxsim_kernels(torch, ms, card):
     qt = torch.randn((b * nq, d), generator=gen, device=dev)
     qt /= qt.norm(dim=1, keepdim=True)
     qinv = 1.0 / qt.norm(dim=1)
-    err, rel, out = 0.0, 0.0, {}
+    err = {"maxsim_rank_scan": 0.0, "maxsim_rank_scan_f32": 0.0}
+    rel, out = dict(err), {}
     for label, dtype, ragged in (("full bf16", torch.bfloat16, False),
                                  ("full f32", torch.float32, False),
                                  ("ragged f32", torch.float32, True)):
@@ -404,26 +420,35 @@ def maxsim_kernels(torch, ms, card):
             tokens[torch.arange(t, device=dev)[None, :] >= counts[:, None]] = 0
             dbias[torch.randperm(n, generator=gen, device=dev)[: n // 50]] = float("inf")
         qs = qt.to(torch.bfloat16).float() if dtype == torch.bfloat16 else qt
-        rank = ms.maxsim_rank_scan(tokens, counts, dbias, qt, qinv, b=b, metric="cosine")
+        _tsq, tinv = ms.token_norms(tokens)  # as the scan cache keeps them
+        args = (tokens, counts, dbias, qt, qinv)
+        before = dict(ms.ROUTES["maxsim_rank_scan"])
+        rank = ms.maxsim_rank_scan(*args, b=b, metric="cosine", tinv=tinv)
+        assert ms.ROUTES["maxsim_rank_scan"]["direct"] == before["direct"] + 1, ms.ROUTES
         storage = "bf16" if dtype == torch.bfloat16 else "f32"
+        name = "maxsim_rank_scan" if storage == "bf16" else "maxsim_rank_scan_f32"
         a, e = abs_rel_err(rank, ms._maxsim_rank_scan_ref(tokens, counts, dbias, qs, qinv, b=b,
-                                                          metric="cosine"))
+                                                          metric="cosine", tinv=tinv))
         assert e <= MV_RTOL[storage], f"MaxSim {label} err {e}"
-        err, rel = max(err, a), max(rel, e)
-        k = cuda_ms(torch, lambda: ms.maxsim_rank_scan(tokens, counts, dbias, qt, qinv, b=b,
-                                                       metric="cosine"))
+        err[name], rel[name] = max(err[name], a), max(rel[name], e)
+        k = cuda_ms(torch, lambda: ms.maxsim_rank_scan(*args, b=b, metric="cosine", tinv=tinv))
         plain = cuda_ms(torch, lambda: ms._maxsim_rank_scan_ref(tokens, counts, dbias, qs, qinv,
-                                                               b=b, metric="cosine"), reps=3)
+                                                               b=b, metric="cosine", tinv=tinv),
+                        reps=3)
+        # bf16 products on the tensor cores; f32 blocks three TF32 products
+        # (3xTF32) against the query's two parts
         ops = 2 * n * t * d * b * nq
-        nbytes = tokens.numel() * tokens.element_size() + 4 * (2 * n + 2 * b * nq + b * n)
-        bnd = bound(ops, storage, nbytes)
+        qbytes = b * nq * d * (2 if storage == "bf16" else 8)
+        nbytes = (tokens.numel() * tokens.element_size() + 4 * n * t + 4 * 2 * n + qbytes
+                  + 4 * b * nq + 4 * b * n)
+        bnd = bound(ops, "bf16", nbytes) if storage == "bf16" else bound(3 * ops, "tf32", nbytes)
         log(f"  maxsim_rank_scan {label} [{n}, {t}, {d}] x [{b} x {nq}]: abs err {a:.3g}, "
             f"rel err {e:.3g} (rtol "
             f"{MV_RTOL[storage]}), {k:.3f} ms vs plain {plain:.3f} ms; bound {bnd[0]:.3f} ms "
             f"({bnd[1]}) {card}")
-        if label == "full bf16":
-            out = {"ms": k, "plain_ms": plain, "bound": bnd}
-        del tokens, rank
+        if not ragged:
+            out[name] = {"ms": k, "plain_ms": plain, "bound": bnd}
+        del tokens, rank, tinv, args
         torch.cuda.empty_cache()
     return err, rel, out
 
@@ -556,9 +581,7 @@ def maxsim_config5(torch, vt, rng, card):
     assert block.dtype == torch.bfloat16 and bool((counts[:MV_N] == MV_T).all()), block.dtype
     assert ms.supports_fused("cosine", cache.cap, MV_Q)
     query_sets = [s.tolist() for s in sets]
-    for table in (fs.LAUNCHES, ms.LAUNCHES):
-        for name in table:
-            table[name] = 0
+    reset_counts(fs, ms)
     got = []
     for lo in range(0, MV_SETS, MV_B):
         got += col.multi_vector_search_batch(query_sets[lo:lo + MV_B], limit=10)
@@ -566,6 +589,8 @@ def maxsim_config5(torch, vt, rng, card):
     torch.cuda.synchronize()
     launches = {**fs.LAUNCHES, **ms.LAUNCHES}
     assert launches["maxsim_rank_scan"] == MV_SETS // MV_B + 1, launches
+    routes = dict(ms.ROUTES["maxsim_rank_scan"])
+    assert routes == {"direct": launches["maxsim_rank_scan"], "padded": 0}, routes
     assert [r.id for r in single] == [r.id for r in got[0]], "single set != batch"
     assert launches["maxsim_rank_scan"] > 0 and launches["extract_group_rows"] > 0, launches
     assert col.host_routes == 0, f"host routes: {col.host_routes}"
@@ -578,9 +603,11 @@ def maxsim_config5(torch, vt, rng, card):
     qtok, qmask = torch.from_numpy(qtok).to(dev), torch.from_numpy(qmask).to(dev)
     valid = cache.valid_mask()
 
+    norms = cache.token_norms()
+
     def device_batch():
         return ms.fused_maxsim_topk_batch(block, counts, valid, qtok, qmask, metric="cosine",
-                                          limit=10)
+                                          limit=10, norms=norms)
 
     assert bool(device_batch()[2].all()), "a device batch flagged ok False"
     ms_dev = host_ms(torch, device_batch)
@@ -593,8 +620,8 @@ def maxsim_config5(torch, vt, rng, card):
     profile_split(torch, device_batch, card)
     log(f"  ids equal the f64 oracle on {MV_ORACLE_SETS} sets ({swaps} near-tie swaps; oracle "
         f"{oracle_s:.1f}s); single-set search == its batch row; host routes 0; launches "
-        f"{launches}")
-    del col, cache, block, counts, tokens
+        f"{launches}; MaxSim routes {routes}")
+    del col, cache, block, counts, tokens, norms
     torch.cuda.empty_cache()
 
     # a ragged corpus through put_many with vectors: counts below T
@@ -606,10 +633,14 @@ def maxsim_config5(torch, vt, rng, card):
     col = vt.Collection(name="ragged", dimensions=MV_D, metric="cosine", index="flat",
                         normalize="none", device=dev)
     col.put_many([{"id": i, "vectors": list(v)} for i, v in zip(ids, ragged)])
-    before = ms.LAUNCHES["maxsim_rank_scan"]
+    reset_counts(fs, ms)
     got = col.multi_vector_search_batch(query_sets[:MV_ORACLE_SETS], limit=10)
-    assert (col._scan_cache().multi_vectors()[1][:n] < MV_T).any()
-    assert ms.LAUNCHES["maxsim_rank_scan"] > before
+    torch.cuda.synchronize()
+    ragged_launches = {**fs.LAUNCHES, **ms.LAUNCHES}
+    block, counts = col._scan_cache().multi_vectors()
+    assert block.dtype == torch.float32 and (counts[:n] < MV_T).any(), block.dtype
+    assert ragged_launches["maxsim_rank_scan"] == 1, ragged_launches
+    assert ms.ROUTES["maxsim_rank_scan"] == {"direct": 1, "padded": 0}, ms.ROUTES
     assert col.host_routes == 0
     padded = np.zeros((n, MV_T, MV_D), np.float32)
     for i, v in enumerate(ragged):
@@ -617,10 +648,11 @@ def maxsim_config5(torch, vt, rng, card):
     want = maxsim_oracle(padded, sets[:MV_ORACLE_SETS], ids, 10, lens=lens)
     swaps_r = sum(check_hits([(r.id, r.score) for r in row], w, 10)
                   for row, w in zip(got, want))
-    log(f"  ragged corpus ({n} docs of 1..{MV_T} tokens): ids equal the f64 "
-        f"oracle on {MV_ORACLE_SETS} sets ({swaps_r} near-tie swaps)")
+    log(f"  ragged corpus ({n} docs of 1..{MV_T} tokens, f32 block): ids equal the f64 "
+        f"oracle on {MV_ORACLE_SETS} sets ({swaps_r} near-tie swaps); launches "
+        f"{ragged_launches}, MaxSim routes {ms.ROUTES['maxsim_rank_scan']}")
     col.close()
-    return launches, ms_dev, ms_sync
+    return launches, ragged_launches, ms_dev, ms_sync
 
 
 def quantized_oracle(stored, q, count, limit):
@@ -708,7 +740,8 @@ def adaptive_modes(torch, col, stored, queries, exact, card):
     launches = dict(fs.LAUNCHES)
     for name in ("stage_gmin_scan", "sign_scan", "extract_group_rows"):
         assert launches[name] > 0, f"{name} not launched: {launches}"
-    assert fs.ROUTES["sign_scan"] == {"direct": launches["sign_scan"], "padded": 0}, fs.ROUTES
+    for name in ("stage_gmin_scan", "sign_scan"):
+        assert fs.ROUTES[name] == {"direct": launches[name], "padded": 0}, fs.ROUTES
     assert col.host_routes == 0, f"host routes: {col.host_routes}"
 
     def ids(rows):
@@ -752,7 +785,33 @@ def adaptive_modes(torch, col, stored, queries, exact, card):
         f"{TIE_EPS}: {near}; oracles {oracle_s:.1f}s); host routes 0; overlap@10 against "
         f"exact flat: quantized {overlap(got_q):.4f}, funnel {overlap(got_f):.4f}; "
         f"launches {launches}")
-    return launches
+
+    # the funnel over bf16 rows: the pipeline's entry point on a bf16 copy
+    # of the block (K5's Bf16 policy; its stage 1 selects with bf16 dots)
+    from vettore_tpu_torch.ops import pipeline as pipe
+
+    x, valid = cache.vectors()
+    x16 = x.to(torch.bfloat16)
+    xsq16 = (x16[:, :FUNNEL_STAGES[0]].float() ** 2).sum(dim=1)
+
+    def funnel16():
+        return pipe.funnel_pipeline_batch(x16, valid, qdev, xsq16, metric="cosine",
+                                          stages=FUNNEL_STAGES, count=FUNNEL_C, limit=10)
+
+    reset_counts(fs)
+    slots16, _raws, _ranks, ok16 = funnel16()
+    torch.cuda.synchronize()
+    launches16 = dict(fs.LAUNCHES)
+    assert launches16["stage_gmin_scan"] == 1 and bool(ok16.all()), launches16
+    assert fs.ROUTES["stage_gmin_scan"] == {"direct": 1, "padded": 0}, fs.ROUTES
+    got16 = slots16[:m].cpu().numpy()
+    same = np.mean([len(set(got16[i].tolist()) & set(want_f[i][0][:10])) / 10 for i in range(m)])
+    ms16 = host_ms(torch, funnel16)
+    log(f"  funnel over a bf16 block (funnel_pipeline_batch): overlap@10 with the f64 funnel "
+        f"oracle {same:.4f} on {m} queries, {ms16:.3f} ms per batch of {len(queries)}, "
+        f"launches {launches16}, K5 routes {fs.ROUTES['stage_gmin_scan']} {card}")
+    del x16, xsq16
+    return launches, launches16
 
 
 def profile_runs(torch, runs, card, reps=3):
@@ -894,8 +953,9 @@ def main() -> int:
     errs.update(int8_errs)
     del x32, xsq, bias, q
     torch.cuda.empty_cache()
-    errs["maxsim_rank_scan"], rel_errs["maxsim_rank_scan"], mv_times = maxsim_kernels(
-        torch, ms, card)
+    mv_errs, mv_rel, mv_times = maxsim_kernels(torch, ms, card)
+    errs.update(mv_errs)
+    rel_errs.update(mv_rel)
     torch.cuda.synchronize()
     log(f"[phase 2c] K3 bit-equal and K4 match at N={N_MAIN} d={D_MAIN} B={B_MAIN}; the "
         f"MaxSim kernel matches at config 5's shape ({time.perf_counter() - t0:.1f}s)")
@@ -989,7 +1049,8 @@ def main() -> int:
 
     # ---- phase 4b: BASELINE configs 3 and 4 on the same collection --------
     t0 = time.perf_counter()
-    adaptive_launches = adaptive_modes(torch, col, stored, queries, got, card)
+    adaptive_launches, funnel16_launches = adaptive_modes(torch, col, stored, queries, got,
+                                                          card)
     del stored
     del col
     torch.cuda.empty_cache()
@@ -1011,17 +1072,20 @@ def main() -> int:
 
     # ---- phase 6: BASELINE config 5, exact MaxSim --------------------------
     t0 = time.perf_counter()
-    mv_launches, _ms_mv, _ms_mv_sync = maxsim_config5(torch, vt, rng, card)
+    mv_launches, ragged_launches, _ms_mv, _ms_mv_sync = maxsim_config5(torch, vt, rng, card)
     log(f"[phase 6] config 5 exact MaxSim ({MV_N}x{MV_T}x{MV_D} bf16, {MV_SETS} sets of "
         f"{MV_Q}, limit 10, batch {MV_B}): ids equal the f64 oracle, ok all true, launches "
         f"maxsim_rank_scan {mv_launches['maxsim_rank_scan']} "
         f"({time.perf_counter() - t0:.1f}s)")
 
-    # bounds from this run's shapes: the f32 cosine main configurations,
-    # config 5's full bf16 block; K2 and K4 read the distinct selected rows
+    # bounds from this run's shapes: the cosine main configurations, config
+    # 5's full bf16 and f32 blocks; K2 and K4 read the distinct selected rows
     n, d, b, g = N_MAIN, D_MAIN, B_MAIN, N_MAIN // fs.GROUP
     gsel, dims, c7 = 16 + fs.GROUP_SLACK, FUNNEL_STAGES[0], QUANT_C
     main_t, bf16_t = times[("f32", "cosine")], times[("bf16", "cosine")]
+    # K5 reads the prefix, its norms and biases and the query prefix (f32:
+    # its two TF32 parts), writes the rank matrix and the group minima
+    k5_out = 4 * (b + b * n + b * g) + 8 * n
     rows = [
         # f32 blocks: three TF32 products (3xTF32) over x, q_hi and q_lo
         ("gmin_scan", "flat_scan.cu", "flat_scan.py:134", launches, main_t["k1"],
@@ -1039,20 +1103,26 @@ def main() -> int:
         ("int8_rescore", "int8_scan.cu", "flat_scan.py:634", int8_launches, int8_times["k4"],
          int8_times["k4_plain"], None, int8_times["k4_bound"]),
         ("stage_gmin_scan", "adaptive_scan.cu", "flat_scan.py:380", adaptive_launches,
-         adaptive_times["k5"], adaptive_times["k5_plain"], None,
-         bound(2 * n * dims * b, "f32", 4 * (n * dims + 2 * n + b * dims + b + b * n + b * g))),
+         adaptive_times["k5_f32"], adaptive_times["k5_f32_plain"], None,
+         bound(3 * 2 * n * dims * b, "tf32", 4 * n * dims + 8 * b * dims + k5_out)),
+        ("stage_gmin_scan_bf16", "adaptive_scan.cu", "flat_scan.py:380", funnel16_launches,
+         adaptive_times["k5_bf16"], adaptive_times["k5_bf16_plain"], None,
+         bound(2 * n * dims * b, "bf16", 2 * n * dims + 2 * b * dims + k5_out)),
         ("sign_scan", "adaptive_scan.cu", "flat_scan.py:518", adaptive_launches,
          adaptive_times["k6"], adaptive_times["k6_plain"], None,
          bound(2 * n * d * b, "int8", n * d + n + b * d + 2 * b * n + 4 * b * g)),
         ("extract_group_rows", "adaptive_scan.cu", "flat_scan.py:789", adaptive_launches,
          adaptive_times["k7"], adaptive_times["k7_plain"], adaptive_times["k7_lib"],
          bound(0, "f32", 2 * (b * c7 * 64 * 2) + 4 * b * c7)),
-        ("maxsim_rank_scan", "maxsim.cu", "maxsim.py:526,490", mv_launches, mv_times["ms"],
-         mv_times["plain_ms"], None, mv_times["bound"]),
+        *(("maxsim_rank_scan" + sfx, "maxsim.cu", "maxsim.py:526,490", counts,
+           mv_times["maxsim_rank_scan" + sfx]["ms"], mv_times["maxsim_rank_scan" + sfx]["plain_ms"],
+           None, mv_times["maxsim_rank_scan" + sfx]["bound"])
+          for sfx, counts in (("", mv_launches), ("_f32", ragged_launches))),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": f"vettore_tpu_torch/csrc/{src}",
-         "replaces": f"vettore_tpu/ops/{tpu}", "launches": counts[name.removesuffix("_bf16")],
+         "replaces": f"vettore_tpu/ops/{tpu}",
+         "launches": counts[name.removesuffix("_bf16").removesuffix("_f32")],
          "max_abs_err": errs[name], "max_rel_err": rel_errs.get(name), "ms": k_ms,
          "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
         for name, src, tpu, counts, k_ms, plain_ms, lib_ms, bnd in rows

@@ -111,13 +111,17 @@ def test_kernels_refuse_wrong_operands(cuda):
 
 # ---------------------------------------------------------------------------
 # K5 stage_gmin_scan, K6 fused_sign_scan, K7 extract_group_rows and the
-# adaptive pipelines. Ragged on purpose: query counts off the 128-query tile,
-# prefix widths off the 32-element d-chunk, and sign widths off 4 bytes.
-# Tolerances: K5 group minima and ranks f32 atol 1e-5, bf16 atol 1e-4; K6
-# and K7 bit-equal; pipelines the same slots and raws within 1e-5.
+# adaptive pipelines. Ragged on purpose: query counts across the 64-, 128-
+# and 256-query tiles, prefix widths off the 128-byte k-stage (33) and on
+# it (128), rows whose f32 or bf16 stride TMA cannot address (d = 99: the
+# padded route), 17 groups (the last 128-row tile half empty), and sign
+# widths off 4 bytes. Tolerances: K5 group minima and ranks f32 atol 1e-5,
+# bf16 atol 1e-4; K6 and K7 bit-equal; pipelines the same slots and raws
+# within 1e-5.
 # ---------------------------------------------------------------------------
 
-STAGE_SHAPES = ((4096, 96, 70, 33), (2048, 160, 130, 128))  # (n, d, b, dims)
+STAGE_SHAPES = ((4096, 96, 70, 33), (2048, 160, 130, 128), (1088, 160, 1, 128),
+                (1088, 96, 257, 33), (1088, 99, 70, 33), (1088, 128, 257, 128))  # (n, d, b, dims)
 SIGN_SHAPES = ((4096, 128, 70), (2048, 77, 130), (1024, 6, 3))  # (n, d, b)
 
 
@@ -145,6 +149,68 @@ def test_stage_gmin_scan_kernel_matches_plain(cuda, metric, storage, shape):
     want_gmin, want_rank = fs._stage_gmin_scan_ref(x, xsq, bias, q, metric=metric, dims=dims)
     _assert_close_with_inf(gmin, want_gmin, GMIN_ATOL[storage])
     _assert_close_with_inf(rank, want_rank, GMIN_ATOL[storage])
+
+
+def test_stage_gmin_scan_counts_its_operand_route(cuda):
+    # f32 rows of 160 values (640 bytes) and bf16 rows (320 bytes) are read
+    # in place, their first 128 columns through TMA's box; rows of 99 values
+    # (396 and 198 bytes) have their prefix copied to a 16-byte stride first
+    before = dict(fs.ROUTES["stage_gmin_scan"])
+    for d, direct in ((160, True), (99, False)):
+        x, _xsq, bias, q = _operands(1088, d, 5, "f32", cuda, seed=d)
+        for xs in (x, x.to(torch.bfloat16)):
+            xsq = (xs[:, :64].float() ** 2).sum(dim=1)
+            got = fs.stage_gmin_scan(xs, xsq, bias, q, metric="l2", dims=64)
+            want = fs._stage_gmin_scan_ref(xs, xsq, bias, q, metric="l2", dims=64)
+            atol = GMIN_ATOL["bf16" if xs.dtype == torch.bfloat16 else "f32"]
+            for g, w in zip(got[:2], want):
+                _assert_close_with_inf(g, w, atol)
+    torch.cuda.synchronize()
+    assert fs.ROUTES["stage_gmin_scan"] == {"direct": before["direct"] + 2,
+                                            "padded": before["padded"] + 2}
+
+
+@pytest.mark.parametrize("where", ["rows", "query"])
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", ["cosine", "l2_squared", "negative_inner_product"])
+def test_stage_gmin_scan_huge_norms_and_dead_rows(cuda, metric, storage, where):
+    # as K1's test: rows of +-1e19 entries (squared norms inf), scattered
+    # rows of norm 1e16, or a query of norm 1e20, and a group of dead rows.
+    # The batch fails the overflow bound; the kernel's non-finite ranks and
+    # minima are the plain version's, and its finite ones lie within atol of
+    # them in units of the terms each rank sums (1 for cosine over the whole
+    # row, |x| |q| for the dot, (|x| + |q|)^2 for l2 squared)
+    rng = np.random.default_rng(16)
+    x, _xsq, bias, q = _operands(K1_ROWS, 256, 40, "f32", "cpu", seed=17)
+    if where == "rows":
+        x[128:192] = torch.from_numpy(rng.choice([-1e19, 1e19], (64, 256)).astype(np.float32))
+        x[[7, 700, 1000]] *= 1e16
+    else:
+        q[3] *= 1e20
+    x[320:384] = 0.0
+    bias[320:384] = float("inf")
+    if storage == "bf16":
+        x = x.to(torch.bfloat16)
+    xsq = (x.float() ** 2).sum(dim=1)
+    x, xsq, bias, q = (t.to(cuda) for t in (x, xsq, bias, q))
+    gmin, rank, bounded = fs.stage_gmin_scan(x, xsq, bias, q, metric=metric, dims=256)
+    torch.cuda.synchronize()
+    assert not bool(bounded)
+    want_gmin, want_rank = fs._stage_gmin_scan_ref(x, xsq, bias, q, metric=metric, dims=256)
+    xn, qn = x.double().norm(dim=1), q.double().norm(dim=1)
+    if metric == "cosine":
+        terms = torch.ones((q.shape[0], x.shape[0]), dtype=torch.float64, device=cuda)
+    elif metric == "l2_squared":
+        terms = (qn[:, None] + xn[None, :]) ** 2
+    else:
+        terms = qn[:, None] * xn[None, :]
+    sizes = (terms.clamp_min(1.0), terms.view(q.shape[0], -1, fs.GROUP).amax(dim=-1).clamp_min(1.0))
+    for got, want, size in zip((rank, gmin), (want_rank, want_gmin), sizes):
+        fin = torch.isfinite(want)
+        assert not bool(fin.all()) and bool(fin.any())
+        assert torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin])
+        err = (got.double() - want.double()).abs()
+        assert bool((err[fin] <= GMIN_ATOL[storage] * size[fin]).all())
 
 
 @pytest.mark.parametrize("shape", SIGN_SHAPES)
@@ -274,8 +340,11 @@ def test_adaptive_kernels_refuse_wrong_operands(cuda):
 
 # ---------------------------------------------------------------------------
 # K3 int8_gmin_scan, K4 int8_rescore and the MaxSim rank scan. Ragged on
-# purpose: int8 widths off 4 bytes, token counts T = 1, 3 and 32, caps off
-# the TPU's 128-doc tile, query counts off the kernels' tiles. Tolerances:
+# purpose: int8 widths off 4 bytes; MaxSim token counts T = 1, 3 (padded to
+# 4), 16, 32, 128, 256 and 300 (padded to 384: three 128-row chunks per
+# doc), query sets of 1, 3, 4, 32 and 300 tokens (the last wider than any
+# query tile), 130 sets of one token (across query tiles), d = 77 (the
+# padded route) and 128; caps off the TPU's 128-doc tile. Tolerances:
 # K3 bit-equal; K4 1e-5 * max(1, |rank|); the MaxSim ranks 1e-5 * max(1,
 # |rank|) for f32 blocks and 1e-4 * max(1, |rank|) for bf16 blocks;
 # searches the same slots, and raws or scores within 1e-5 * max(1, |x|).
@@ -357,7 +426,9 @@ def test_int8_index_on_card_matches_cpu(cuda, metric):
 
 
 MV_SHAPES = ((192, 1, 96, 5, 4), (320, 3, 77, 7, 3), (640, 32, 128, 4, 4),
-             (100, 32, 128, 130, 1))  # (docs, T, d, query sets, tokens per set)
+             (100, 32, 128, 130, 1), (200, 16, 128, 3, 32), (130, 128, 128, 6, 4),
+             (70, 256, 77, 2, 3), (96, 3, 128, 1, 300), (40, 300, 128, 3, 4),
+             (150, 1, 128, 130, 1))  # (docs, T, d, query sets, tokens per set)
 
 
 def _mv_operands(n, t, d, b, nq, storage, device, seed=0, full=False):
@@ -453,6 +524,54 @@ def test_single_set_search_on_card_launches_the_kernel(cuda, metric):
     assert ms.LAUNCHES["maxsim_rank_scan"] == before + 1
     assert [r.id for r in hits] == [r.id for r in want.multi_vector_search(query, limit=10)]
     assert got.host_routes == 0
+
+
+def test_maxsim_rank_scan_counts_its_operand_route(cuda):
+    # blocks of T = 32 (a power of two) and d = 128 go to TMA in place, with
+    # sets of 4 tokens or of 3 (the query padded to 4, not counted); T = 3
+    # (the block grown to 4 tokens a doc) and d = 77 (a row stride off 16
+    # bytes) are copied first
+    from vettore_tpu_torch.ops import maxsim as ms
+
+    before = dict(ms.ROUTES["maxsim_rank_scan"])
+    cases = ((64, 32, 128, 3, 4, True), (64, 32, 128, 3, 3, True), (64, 3, 128, 3, 4, False),
+             (64, 32, 77, 3, 4, False))
+    for n, t, d, b, nq, direct in cases:
+        for storage in STORAGES:
+            args = _mv_operands(n, t, d, b, nq, storage, cuda, seed=t + d)
+            rank = ms.maxsim_rank_scan(*args, b=b, metric="cosine")
+            qs = args[3].to(torch.bfloat16).float() if storage == "bf16" else args[3]
+            want = ms._maxsim_rank_scan_ref(*args[:3], qs, args[4], b=b, metric="cosine")
+            _assert_rel_close(rank, want, 1e-5 if storage == "f32" else 1e-4)
+    torch.cuda.synchronize()
+    assert ms.ROUTES["maxsim_rank_scan"] == {"direct": before["direct"] + 4,
+                                             "padded": before["padded"] + 4}
+
+
+def test_cached_token_norms_equal_per_call_ones(cuda):
+    # the scan cache's (tsq, tinv) are token_norms of its block, and the
+    # rank scan gives the same ranks with them as with its own
+    import vettore_tpu_torch as vt
+    from vettore_tpu_torch.ops import maxsim as ms
+
+    rng = np.random.default_rng(8)
+    records = [{"id": f"m{i:04d}", "vectors": rng.standard_normal((int(rng.integers(1, 9)), 64))
+                .astype(np.float32).tolist()} for i in range(200)]
+    col = vt.Collection(name="mv", dimensions=64, metric="cosine", device=cuda)
+    col.put_many(records)
+    cache = col._scan_cache()
+    tokens, counts = cache.multi_vectors()
+    tsq, tinv = cache.token_norms()
+    assert cache.token_norms()[1] is tinv
+    want_tsq, want_tinv = ms.token_norms(tokens)
+    assert torch.equal(tsq, want_tsq) and torch.equal(tinv, want_tinv)
+    qt = torch.from_numpy(rng.standard_normal((8, 64)).astype(np.float32)).to(cuda)
+    qinv = 1.0 / qt.norm(dim=1)
+    dbias = torch.zeros(tokens.shape[0], device=cuda)
+    args = (tokens, counts, dbias, qt, qinv)
+    assert torch.equal(ms.maxsim_rank_scan(*args, b=2, metric="cosine", tinv=tinv),
+                       ms.maxsim_rank_scan(*args, b=2, metric="cosine"))
+    col.close()
 
 
 def test_new_kernels_refuse_wrong_operands(cuda):

@@ -1,13 +1,16 @@
 """Times the tensor-core scans on one CUDA card, whole and with their
 epilogues or their products cut out: K1 ``gmin_scan`` (f32 and bf16
-blocks, cosine and l2), K3 ``int8_gmin_scan`` (cosine) and K6
-``fused_sign_scan``.
+blocks, cosine and l2), K3 ``int8_gmin_scan`` (cosine), K5
+``stage_gmin_scan`` (f32 and bf16 blocks, cosine, dims = 128), K6
+``fused_sign_scan`` and the MaxSim ``maxsim_rank_scan`` (cosine).
 
 All of them run the TMA / ``wgmma`` scan skeleton of
 ``vettore_tpu_torch/csrc/wgmma_scan.cuh``. At N = 1,000,448 rows, d = 768
-and B = 512, 16 and 1 queries, the script prints the median ms (CUDA
-events, around the Python wrapper) of each kernel, for these builds, each
-in a child process of its own, in turns:
+and B = 512, 16 and 1 queries (MaxSim at BASELINE config 5's shape:
+100,352 docs of 32 tokens, d = 128, 64 sets of 4 tokens, bf16 and f32
+blocks, the token norms given as the scan cache keeps them), the script
+prints the median ms (CUDA events, around the Python wrapper) of each
+kernel, for these builds, each in a child process of its own, in turns:
 
 * ``full``: the package as it is;
 * ``no-epilogue``: a copy of the package, built in its own directory under
@@ -25,16 +28,22 @@ in a child process of its own, in turns:
 
 ``--pairs P`` (with ``--parent``) times only ``full`` and ``parent``, in P
 pairs whose order alternates (parent, full, full, parent, ...), and prints
-each kernel's median and range over the runs of each. ``--kernels`` picks
-the kernels (``k1``, ``k3``, ``k6``; all by default). The last line is a
-JSON summary. Run from the repository root on a machine with a CUDA card:
+each kernel's median and range over the runs of each. ``--phases`` runs
+one call of each kernel in a copy of the package whose consumer
+warpgroups count ``clock64()`` cycles (thread 0 of each, summed over
+tiles with atomics), and prints per tile and warpgroup the cycles spent
+waiting for ring stages, on the products, and in the epilogue. ``--kernels`` picks
+the kernels (``k1``, ``k3``, ``k5``, ``k6``, ``maxsim``; all by default).
+The last line is a JSON summary. Run from the repository root on a machine
+with a CUDA card:
 
-    python3 tools/scan_timing.py [--parent DIR [--pairs P]] [--kernels k3,k6]
+    python3 tools/scan_timing.py [--parent DIR [--pairs P]] [--kernels k5,maxsim]
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import shutil
@@ -44,6 +53,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 N, D, BATCHES = 1_000_448, 768, (512, 16, 1)
+KERNELS = ("k1", "k3", "k5", "k6", "maxsim")
+#: K5's prefix; the MaxSim shape: docs, tokens per doc, d, sets, tokens per set
+DIMS = 128
+MV_N, MV_T, MV_D, MV_B, MV_Q = 100_352, 32, 128, 64, 4
 #: the epilogue call in the shared scan skeleton, and what each ablated
 #: build puts in its place
 EPILOGUE = "if (inside) epi.template finish<QN>(acc, frame, pre);"
@@ -56,18 +69,57 @@ ABLATIONS = {
       }""",
     "ring-only": "if (false) epi.template finish<QN>(acc, frame, pre);",
 }
+#: the ``--phases`` build: cycle counters around the consumers' phases
+PHASES = (
+    ("namespace {\nnamespace wg {\n",
+     "namespace {\nnamespace wg {\n__device__ unsigned long long phases[4];\n"),
+    ("      fence_acc(acc);\n      int prev = s;\n",
+     "      fence_acc(acc);\n      long long c0 = clock64(), cw = 0;\n      int prev = s;\n"),
+    ("        mbar_wait(&full[s], ph);\n",
+     "        const long long w0 = clock64();\n        mbar_wait(&full[s], ph);\n"
+     "        cw += clock64() - w0;\n"),
+    ("      " + EPILOGUE + "\n",
+     "      const long long c1 = clock64();\n      " + EPILOGUE + "\n"
+     "      if (t == 0) {\n        atomicAdd(&phases[0], (unsigned long long)cw);\n"
+     "        atomicAdd(&phases[1], (unsigned long long)(c1 - c0 - cw));\n"
+     "        atomicAdd(&phases[2], (unsigned long long)(clock64() - c1));\n"
+     "        atomicAdd(&phases[3], 1ull);\n      }\n"),
+)
+#: the source whose counters each kernel's launches add to
+SOURCES = {"k1": "flat_scan", "k3": "int8_scan", "k5": "adaptive_scan", "k6": "adaptive_scan",
+           "maxsim": "maxsim"}
 
 
-def measure(reps: int, kernels: set) -> dict:
-    """Median ms of each of ``kernels`` at every B, in this process."""
+def measure(reps: int, kernels: set, phases: bool) -> dict:
+    """Median ms of each of ``kernels`` at every B, in this process; with
+    ``phases`` (in the ``--phases`` build), cycles per tile and warpgroup
+    [ring wait, products, epilogue] of one call instead."""
+    import ctypes
+
     import numpy as np
     import torch
 
+    from vettore_tpu_torch import _build
     from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.ops import maxsim as ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    def cuda_ms(fn):
+    def counted(fn, src):
+        read = getattr(_build.load(), f"vt_phases_{src}")
+        read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        counts = (ctypes.c_ulonglong * 4)()
+        fn()
+        torch.cuda.synchronize()
+        read(counts, 1)
+        fn()
+        torch.cuda.synchronize()
+        read(counts, 1)
+        return [counts[i] / max(1, counts[3]) for i in range(3)]
+
+    def cuda_ms(fn, src):
+        if phases:
+            return counted(fn, src)
         fn()
         torch.cuda.synchronize()
         times = []
@@ -105,29 +157,67 @@ def measure(reps: int, kernels: set) -> dict:
         # ~10-15% slower than when they run first
         t = {}
         if "k3" in kernels:
-            t["k3"] = cuda_ms(lambda: fs.int8_gmin_scan(*args, metric="cosine"))
+            t["k3"] = cuda_ms(lambda: fs.int8_gmin_scan(*args, metric="cosine"), "int8_scan")
         if "k6" in kernels:
-            t["k6"] = cuda_ms(lambda: fs.fused_sign_scan(signs, valid8, qsigns, d=D))
+            t["k6"] = cuda_ms(lambda: fs.fused_sign_scan(signs, valid8, qsigns, d=D),
+                              "adaptive_scan")
         for storage, xs, xss in (("f32", x, xsq), ("bf16", xb, xbsq)):
             for metric in ("cosine", "l2") if "k1" in kernels else ():
                 t[f"k1_{storage}_{metric}"] = cuda_ms(
-                    lambda: fs.gmin_scan(xs, xss, bias, q, metric=metric))
+                    lambda: fs.gmin_scan(xs, xss, bias, q, metric=metric), "flat_scan")
+            if "k5" in kernels:
+                x5sq = (xs[:, :DIMS].float() ** 2).sum(dim=1)
+                t[f"k5_{storage}"] = cuda_ms(
+                    lambda: fs.stage_gmin_scan(xs, x5sq, bias, q, metric="cosine", dims=DIMS),
+                    "adaptive_scan")
         out[b] = t
+    if "maxsim" in kernels:
+        qt = torch.randn((MV_B * MV_Q, MV_D), generator=gen, device=dev)
+        qt /= qt.norm(dim=1, keepdim=True)
+        qinv = 1.0 / qt.norm(dim=1)
+        counts = torch.full((MV_N,), MV_T, dtype=torch.int32, device=dev)
+        dbias = torch.zeros(MV_N, device=dev)
+        # the cached token norms where the package takes them
+        given = "tinv" in inspect.signature(ms.maxsim_rank_scan).parameters
+        t = {}
+        for storage in ("bf16", "f32"):
+            tokens = torch.randn((MV_N, MV_T, MV_D), generator=gen, device=dev)
+            tokens = tokens.to(torch.bfloat16 if storage == "bf16" else torch.float32)
+            extra = {"tinv": ms.token_norms(tokens)[1]} if given else {}
+            t[f"maxsim_{storage}"] = cuda_ms(lambda: ms.maxsim_rank_scan(
+                tokens, counts, dbias, qt, qinv, b=MV_B, metric="cosine", **extra), "maxsim")
+            del tokens, extra
+        out[f"{MV_B}x{MV_Q}"] = t
     return out
 
 
 def ablated_copy(name: str) -> Path:
     """A copy of the package whose kernels run ``ABLATIONS[name]`` in place
-    of the epilogue."""
+    of the epilogue, or, for "phases", count the cycles of their phases."""
     dest = ROOT / "vettore_tpu_torch" / "_build" / name
     shutil.rmtree(dest, ignore_errors=True)
     shutil.copytree(ROOT / "vettore_tpu_torch", dest / "vettore_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    header = dest / "vettore_tpu_torch" / "csrc" / "wgmma_scan.cuh"
+    csrc = dest / "vettore_tpu_torch" / "csrc"
+    header = csrc / "wgmma_scan.cuh"
     text = header.read_text()
-    if EPILOGUE not in text:
-        raise RuntimeError("the epilogue call in wgmma_scan.cuh has changed; update this script")
-    header.write_text(text.replace(EPILOGUE, ABLATIONS[name]))
+    patches = PHASES if name == "phases" else ((EPILOGUE, ABLATIONS[name]),)
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise RuntimeError("the scan skeleton in wgmma_scan.cuh has changed; update this script")
+        text = text.replace(old, new)
+    header.write_text(text)
+    if name == "phases":  # one reader of the counters per source (each has its own)
+        for src in set(SOURCES.values()):
+            cu = csrc / f"{src}.cu"
+            cu.write_text(cu.read_text() + f"""
+extern "C" int vt_phases_{src}(unsigned long long* out, int reset) {{
+  cudaMemcpyFromSymbol(out, wg::phases, sizeof(unsigned long long) * 4);
+  const unsigned long long zero[4] = {{0, 0, 0, 0}};
+  if (reset) cudaMemcpyToSymbol(wg::phases, zero, sizeof(zero));
+  return (int)cudaGetLastError();
+}}
+""")
     return dest
 
 
@@ -138,14 +228,17 @@ def main() -> int:
                     help="root of another checkout whose package is timed whole")
     ap.add_argument("--pairs", type=int, default=0,
                     help="with --parent: time only it and this package, in this many pairs")
-    ap.add_argument("--kernels", default="k1,k3,k6", help="comma-separated: k1, k3, k6")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated: " + ", ".join(KERNELS))
+    ap.add_argument("--phases", action="store_true",
+                    help="cycles per tile in the ring wait, the products and the epilogue")
     ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     kernels = set(args.kernels.split(","))
-    if not kernels <= {"k1", "k3", "k6"} or (args.pairs and args.parent is None):
-        ap.error("--kernels takes k1, k3, k6; --pairs needs --parent")
+    if not kernels <= set(KERNELS) or (args.pairs and args.parent is None):
+        ap.error(f"--kernels takes {', '.join(KERNELS)}; --pairs needs --parent")
     if args.measure:  # one build, in a child process
-        print(json.dumps(measure(args.reps, kernels)), flush=True)
+        print(json.dumps(measure(args.reps, kernels, args.phases)), flush=True)
         return 0
     import torch
 
@@ -156,7 +249,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    if args.pairs:
+    if args.phases:
+        paths, order = {"phases": ablated_copy("phases")}, ["phases"]
+    elif args.pairs:
         paths = {"full": ROOT, "parent": args.parent.resolve()}
         order = [v for i in range(args.pairs)
                  for v in (("parent", "full") if i % 2 == 0 else ("full", "parent"))]
@@ -170,7 +265,7 @@ def main() -> int:
     for variant in order:
         env = dict(os.environ, PYTHONPATH=str(paths[variant]))
         child = subprocess.run([sys.executable, __file__, "--measure", "--reps", str(args.reps),
-                                "--kernels", args.kernels],
+                                "--kernels", args.kernels, *(["--phases"] if args.phases else [])],
                                capture_output=True, text=True, env=env, check=False)
         if child.returncode:
             print(child.stderr, file=sys.stderr)
@@ -178,9 +273,14 @@ def main() -> int:
         res = json.loads(child.stdout.strip().splitlines()[-1])
         runs.append({"variant": variant, "ms": res})
         for b, t in res.items():
+            if args.phases:
+                print(f"B={b}: " + "; ".join(
+                    f"{k} ring wait {v[0]:.0f}, products {v[1]:.0f}, epilogue {v[2]:.0f}"
+                    for k, v in t.items()) + f" cycles per tile and warpgroup [{smi}]", flush=True)
+                continue
             print(f"{variant} B={b}: " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
                   + f" ms [{smi}]", flush=True)
-    for variant in dict.fromkeys(order):
+    for variant in dict.fromkeys(order) if not args.phases else ():
         for b, t in runs[order.index(variant)]["ms"].items():
             for k in t:
                 ms = sorted(r["ms"][b][k] for r in runs if r["variant"] == variant)

@@ -110,8 +110,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "vt_rescore": [p, i, p, p, p, p, p, p, i, i, i, i, i, p],
         "vt_int8_gmin_scan": [p, i, p, p, p, p, i, p, p, p, i, i, i, i, p],
         "vt_int8_rescore": [p, p, p, p, p, p, p, p, i, i, i, i, i, p],
-        "vt_maxsim_rank_scan": [p, i, p, p, p, p, p, i, i, i, i, i, i, p],
-        "vt_stage_gmin_scan": [p, i, p, p, p, p, p, p, i, i, i, i, i, p],
+        "vt_maxsim_rank_scan": [p, i, i, p, p, p, p, p, i, p, p, i, i, i, i, i, i, i, p],
+        "vt_stage_gmin_scan": [p, i, i, p, p, p, p, i, p, p, p, i, i, i, i, p],
         "vt_sign_scan": [p, i, p, p, i, p, p, i, i, i, p],
         "vt_extract_group_rows": [p, p, p, i, i, i, i, p],
     }

@@ -168,6 +168,7 @@ class _VectorCache:
         self._signs = None
         self._stage_xsq = {}
         self._mv = None
+        self._mv_norms = None
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -350,6 +351,14 @@ class _VectorCache:
     def _set_mv(self, tokens: np.ndarray, counts: np.ndarray):
         self._mv = (maxsim_ops.put_token_block(tokens, self.device), self._put(counts))
         return self._mv
+
+    def token_norms(self):
+        """``maxsim.token_norms`` of the token block of ``multi_vectors``:
+        ``(tsq, tinv)`` per token row, computed once per block and dropped
+        with it (a mutation makes a new cache)."""
+        if self._mv_norms is None:
+            self._mv_norms = maxsim_ops.token_norms(self.multi_vectors()[0])
+        return self._mv_norms
 
     def signs(self) -> torch.Tensor:
         """Device ±1 int8 sign block [cap, d] for the Hamming scan, expanded
@@ -1256,7 +1265,8 @@ class Collection:
         qmask_t = torch.from_numpy(qmask).to(self.device)
         if maxsim_ops.supports_fused(metric, cache.cap, qtok.shape[1]):
             out = maxsim_ops.fused_maxsim_topk_batch(
-                tokens, counts, valid, qtok_t, qmask_t, metric=metric, limit=k)
+                tokens, counts, valid, qtok_t, qmask_t, metric=metric, limit=k,
+                norms=cache.token_norms())
         else:
             out = maxsim_ops.maxsim_full_topk_batch(
                 tokens, counts, valid, qtok_t, qmask_t, metric=metric, limit=k,

@@ -11,7 +11,6 @@
 // K7 (vettore_tpu_torch/ops/pipeline.py). The plain PyTorch versions sit in
 // vettore_tpu_torch/ops/flat_scan.py.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -21,148 +20,156 @@
 namespace {
 
 constexpr int GROUP = 64;            // rows per selection group
-constexpr int QT = 128;              // queries per block (K5)
-constexpr int THREADS = 256;         // 16 row lanes x 16 query lanes
-constexpr int RPT = GROUP / 16;      // rows per thread (4)
-constexpr int QPT = QT / 16;         // queries per thread (8)
-constexpr int DC = 32;               // d-chunk staged through shared memory
-__device__ __forceinline__ float load_x(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 // metric codes: the order of FUSED_METRICS in ops/flat_scan.py
 enum Metric { COSINE = 0, INNER = 1, NEG_INNER = 2, L2 = 3, L2_SQUARED = 4 };
-
-// The true stage metric from a prefix dot (ops/flat_scan.py::_stage_rank):
-// cosine renormalises over the prefix and clips to [-1, 1]; l2 clamps the
-// expansion at 0. IEEE division and square root (no fast math), as the
-// reference computes them.
-__device__ __forceinline__ float stage_rank(float dot, float xsq, float qsq, int metric) {
-  if (metric == COSINE) {
-    const float denom = sqrtf(xsq) * sqrtf(qsq);
-    const float sim = denom > 0.f ? dot / denom : 0.f;
-    return 1.f - fminf(fmaxf(sim, -1.f), 1.f);
-  }
-  if (metric == INNER) return -dot;
-  if (metric == NEG_INNER) return dot;
-  const float sq = fmaxf(xsq - 2.f * dot + qsq, 0.f);
-  return metric == L2 ? sqrtf(sq) : sq;
-}
 
 // ---------------------------------------------------------------------------
 // K5 stage_gmin_scan: for the first `dims` columns of x,
 //   rank[b, r] = stage_rank(x[r, :dims] . q[b, :dims]) + bias[r]
 //   gmin[b, g] = min over the 64 rows r of group g of rank[b, r]
+// with stage_rank the true prefix metric (ops/flat_scan.py::_stage_rank):
+// cosine renormalised over the prefix and clipped to [-1, 1], the inner
+// products, and l2 / l2 squared from the expansion clamped at 0.
 //
 // Replaces the Pallas kernel vettore_tpu/ops/flat_scan.py::_stage_gmin_scan
 // (body _stage_gmin_body), the funnel's stage-1 scan.
 //
 // Bound: at the main-path shape (N = 1,000,448, dims = 128, B = 512) it does
-// 2*N*dims*B = 131 GFLOP and writes the 2.05 GB rank matrix, about 64 FLOP
-// per byte written: between the two roofs, with the FMA loop the larger
-// share on CUDA cores.
+// 2*N*dims*B = 131 G operations and writes the 2.05 GB rank matrix. f32
+// blocks keep f32's accuracy as three TF32 products: 3 x 131 G at 495
+// TFLOP/s, 0.795 ms (the bytes 0.777 ms). bf16 blocks: the bytes, ~0.70 ms
+// (the operations at the bf16 peak 0.13 ms).
 //
-// Design: CUDA-core FMAs. One block owns one 64-row group and a 128-query
-// tile, so the group-min needs no reduction across blocks. x (row stride ld, only the
-// first `dims` columns read: no prefix copy) and q stage through shared
-// memory in d-chunks of 32; each of the 256 threads keeps a 4-row x 8-query
-// register tile of f32 FMA accumulators (no TF32: the counterpart of
-// Precision.HIGHEST; bf16 rows widen exactly, and the wrapper rounds the
-// query to bf16). The epilogue writes the rank tile to shared memory as
-// [query][row], so each query's 64 ranks leave as one coalesced 256-byte
-// row of the [B, N] matrix, and 128 threads take the group minima from the
-// same tile. Like _stage_gmin_body it runs no finiteness pass: the wrapper
-// proves per batch that no rank can overflow.
-//
-// Left for later: K1's tensor-core mainloop (csrc/wgmma_scan.cuh, its Bf16
-// and Tf32x3 policies), and writing the rank matrix in bf16 or only for the
-// groups that can win.
+// Design: the shared tensor-core scan skeleton (csrc/wgmma_scan.cuh: a
+// persistent grid, a TMA ring that loads the next tile during this one's
+// epilogue, tiles of 128 rows x up to 256 queries), K1's policies as they
+// are: Bf16 for bf16 blocks (the query prefix rounded to bf16 by the
+// wrapper), Tf32x3 for f32 blocks (the prefix split by flat_scan.tf32_split).
+// x's tensor map has inner extent dims and x's own row stride, so TMA reads
+// the prefix in place and zero-fills past dims: no prefix copy, no mask.
+// The epilogue works from the accumulator registers: each dot becomes its
+// rank plus the row's bias in place, by one formula for all metrics (the
+// rows' prefix norms and biases and the tile's query norms loaded before
+// the mainloop, inverse square roots taken once per row and per column),
+// the group minima come from wg::column_min,
+// and the ranks leave 32 query columns at a time through the warpgroup's
+// tile as [query][row] (a 272-byte row stride: conflict-free), so that each
+// query's 64 ranks are one coalesced 256-byte row of the [B, N] matrix, 16
+// bytes a lane, stored evict-first: the matrix is written once and read
+// later by K7 for the groups that win. Like _stage_gmin_body it runs no
+// finiteness pass: the wrapper proves per batch that no rank can overflow.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-stage_gmin_scan_kernel(const T* __restrict__ x, const float* __restrict__ xsq,
-                       const float* __restrict__ bias, const float* __restrict__ q,
-                       const float* __restrict__ qsq, float* __restrict__ gmin,
-                       float* __restrict__ rank, int n, int ld, int dims, int b,
-                       int metric) {
-  // main loop: xs [DC][GROUP+1] then qs [DC][QT+1]; epilogue: tile
-  // [QT][GROUP+1] over the same bytes (+1 pads: conflict-free transposes)
-  __shared__ float smem[QT * (GROUP + 1)];
-  float(*xs)[GROUP + 1] = reinterpret_cast<float(*)[GROUP + 1]>(smem);
-  float(*qs)[QT + 1] = reinterpret_cast<float(*)[QT + 1]>(smem + DC * (GROUP + 1));
-  float(*tile)[GROUP + 1] = reinterpret_cast<float(*)[GROUP + 1]>(smem);
+struct StageEpilogue {
+  const float* xsq;
+  const float* bias;
+  const float* qsq;
+  float* gmin;
+  float* rank;
+  int n, ng, b, metric;
 
-  const int g = blockIdx.x;
-  const int q0 = blockIdx.y * QT;
-  const int t = threadIdx.x;
-  const int tx = t % 16;  // query lane: queries tx + 16*j
-  const int ty = t / 16;  // row lane: rows ty + 16*i
-  const int64_t row0 = (int64_t)g * GROUP;
+  // loaded before the mainloop, used after it: the prefix norm and bias of
+  // the thread's two rows, and the tile's query prefix norms at columns t
+  // and t + 128 (staged in shared memory by finish)
+  struct Pre {
+    float xr[2], br[2], qv[2];
+  };
 
-  float acc[RPT][QPT];
+  template <int QN>
+  __device__ Pre prefetch(const wg::Frame& f) const {
+    Pre p;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < QPT; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < dims; k0 += DC) {
-#pragma unroll
-    for (int e = 0; e < GROUP * DC / THREADS; ++e) {
-      const int idx = t + e * THREADS;
-      const int r = idx / DC, c = idx % DC, k = k0 + c;
-      xs[c][r] = k < dims ? load_x(x + (row0 + r) * ld + k) : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int64_t r = (int64_t)f.g * GROUP + wg::acc_row(f.t, h);
+      p.xr[h] = xsq[r];
+      p.br[h] = bias[r];
+      const int qb = f.q0 + f.t + 128 * h;
+      p.qv[h] = qb < b ? qsq[qb] : 0.f;
     }
-#pragma unroll
-    for (int e = 0; e < QT * DC / THREADS; ++e) {
-      const int idx = t + e * THREADS;
-      const int r = idx / DC, c = idx % DC, k = k0 + c, qb = q0 + r;
-      qs[c][r] = (k < dims && qb < b) ? __ldg(q + (int64_t)qb * dims + k) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      float a[RPT], w[QPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) a[i] = xs[c][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < QPT; ++j) w[j] = qs[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < QPT; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
+    return p;
   }
 
-  // the loop ended on a barrier: xs / qs are dead, the tile may reuse them
+  // The stage rank of every metric as one formula, so that the epilogue
+  // runs the same few instructions whatever the metric (with a branch per
+  // metric in the unrolled loop over the accumulator, the epilogue took
+  // longer than the products at dims = 128):
+  //   rank = clamp(dot * mr * mc + ar + ac, lo, hi)   (then sqrt for l2)
+  // with per row (mr, ar) and per query column (mc, ac):
+  //   cosine             -1/|x_p|, 1    1/|q_p|, 0    [0, 2]
+  //   inner product      -1, 0          1, 0          (-inf, inf)
+  //   neg. inner product  1, 0          1, 0          (-inf, inf)
+  //   l2, l2 squared     -2, |x_p|^2    1, |q_p|^2    [0, inf)
+  // For the dot metrics and l2 this is the plain version's arithmetic
+  // bit for bit (dot * -2 is exact, and the fma rounds once, as the
+  // subtraction); cosine multiplies by the inverse norms where the plain
+  // version divides by their product, which moves a rank by a few ulps of
+  // 1, far inside K5_ATOL. 1 - clip(sim, -1, 1) is clip(1 - sim, 0, 2).
+  template <int QN>
+  __device__ void finish(float (&acc)[QN / 2], const wg::Frame& f, const Pre& p) const {
+    constexpr int LD = GROUP + 4;  // f32 tile row: 32 queries x 272 bytes in the int16 tile
+    static_assert(32 * LD * 4 <= 64 * wg::TILE_LD * 2, "32 f32 query rows fit the tile");
+    const bool cosine = metric == COSINE, l2 = metric >= L2;
+    const float sign = metric == NEG_INNER ? 1.f : l2 ? -2.f : -1.f;
+    const float lo = cosine || l2 ? 0.f : -INFINITY, hi = cosine ? 2.f : INFINITY;
+    float mr[2], ar[2];
+    // the previous tile's readers of side, red and the tile passed its
+    // barriers
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty + 16 * i;
-    const float xr = xsq[row0 + r], br = bias[row0 + r];
+    for (int h = 0; h < 2; ++h) {
+      const float x = p.xr[h], y = p.qv[h];
+      mr[h] = cosine ? -(x > 0.f ? 1.f / __fsqrt_rn(x) : 0.f) : sign;
+      ar[h] = cosine ? 1.f : l2 ? x : 0.f;
+      if (f.t + 128 * h < QN) {
+        f.side[f.t + 128 * h] = cosine ? (y > 0.f ? 1.f / __fsqrt_rn(y) : 0.f) : 1.f;
+        f.side[QN + f.t + 128 * h] = l2 ? y : 0.f;
+      }
+    }
+    wg::named_sync(f.bar, 128);
 #pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      const int ql = tx + 16 * j;
-      const float qv = q0 + ql < b ? qsq[q0 + ql] : 0.f;
-      tile[ql][r] = stage_rank(acc[i][j], xr, qv, metric) + br;
+    for (int j = 0; j < QN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = wg::acc_col(f.t, j, c);
+          float& v = acc[4 * j + 2 * h + c];
+          v = __fadd_rn(fmaf(__fmul_rn(v, mr[h]), f.side[col], ar[h]), f.side[QN + col]);
+          v = fminf(fmaxf(v, lo), hi);
+        }
+    if (metric == L2) {
+#pragma unroll
+      for (int i = 0; i < QN / 2; ++i) acc[i] = __fsqrt_rn(acc[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < QN / 2; ++i) acc[i] = __fadd_rn(acc[i], p.br[(i / 2) % 2]);
+    float* red = static_cast<float*>(f.red);
+    wg::column_min<QN, float>(acc, red, f.t, f.bar);
+    for (int col = f.t; col < QN; col += 128)
+      if (f.q0 + col < b) gmin[(int64_t)(f.q0 + col) * ng + f.g] = red[col];
+    float* tile = reinterpret_cast<float*>(f.tile);
+    const int64_t row0 = (int64_t)f.g * GROUP;
+#pragma unroll
+    for (int pass = 0; pass < QN / 32; ++pass) {
+#pragma unroll
+      for (int j = 4 * pass; j < 4 * pass + 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            tile[(wg::acc_col(f.t, j, c) - 32 * pass) * LD + wg::acc_row(f.t, h)] =
+                acc[4 * j + 2 * h + c];
+      wg::named_sync(f.bar, 128);
+      for (int i = f.t; i < 32 * 16; i += 128) {
+        const int col = i / 16, chunk = i % 16, qb = f.q0 + 32 * pass + col;
+        if (qb < b)
+          __stcs(reinterpret_cast<float4*>(rank + (int64_t)qb * n + row0 + 4 * chunk),
+                 *reinterpret_cast<const float4*>(tile + col * LD + 4 * chunk));
+      }
+      wg::named_sync(f.bar, 128);
     }
   }
-  __syncthreads();
-
-  const int ng = n / GROUP;
-  if (t < QT && q0 + t < b) {
-    float m = tile[t][0];
-    for (int r = 1; r < GROUP; ++r) m = fminf(m, tile[t][r]);
-    gmin[(int64_t)(q0 + t) * ng + g] = m;
-  }
-  const int warp = t / 32, lane = t % 32;
-  for (int ql = warp; ql < QT && q0 + ql < b; ql += THREADS / 32) {
-    float* dst = rank + (int64_t)(q0 + ql) * n + row0;
-    dst[lane] = tile[ql][lane];
-    dst[lane + 32] = tile[ql][lane + 32];
-  }
-}
+};
 
 // ---------------------------------------------------------------------------
 // K6 sign_scan: for ±1 int8 sign rows s[r] and query signs qs[b],
@@ -289,27 +296,22 @@ extract_rows_kernel(const uint4* __restrict__ mat, const int* __restrict__ gidx,
 
 extern "C" {
 
-// x: [n, ld] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), of which the first
-// `dims` columns are read; xsq, bias: [n] f32; q: [b, dims] f32 (already
-// rounded to bf16 values by the caller when x is bf16); qsq: [b] f32;
-// gmin: [b, n/64] f32 and rank: [b, n] f32 outputs; metric: the index in
-// FUSED_METRICS. n % 64 == 0.
-int vt_stage_gmin_scan(const void* x, int x_bf16, const float* xsq, const float* bias,
-                       const float* q, const float* qsq, float* gmin, float* rank, int n,
-                       int ld, int dims, int b, int metric, void* stream) {
-  if (n <= 0 || n % GROUP || dims <= 0 || dims > ld || b <= 0 || metric < 0 ||
-      metric > L2_SQUARED || (b + QT - 1) / QT > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(n / GROUP, (b + QT - 1) / QT);
+// x: [n, *] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1) with row stride ldx
+// bytes, of which the first `dims` columns are read; xsq, bias: [n] f32;
+// q: [b, dims] with row stride ldq bytes, the query prefix rounded to bf16
+// for bf16 blocks, its TF32 part q_hi for f32 blocks, whose remainder
+// q - q_hi is q_lo (f32, stride ldq; unused for bf16); qsq: [b] f32 of the
+// f32 prefix; gmin: [b, n/64] f32 and rank: [b, n] f32 outputs; metric: the
+// index in FUSED_METRICS. n % 64 == 0; x, q and q_lo 16-byte aligned, ldx
+// and ldq multiples of 16 (TMA's rule; the wrapper pads other operands).
+int vt_stage_gmin_scan(const void* x, int ldx, int x_bf16, const float* xsq, const float* bias,
+                       const void* q, const void* q_lo, int ldq, const float* qsq, float* gmin,
+                       float* rank, int n, int dims, int b, int metric, void* stream) {
+  if (metric < COSINE || metric > L2_SQUARED) return (int)cudaErrorInvalidValue;
+  const StageEpilogue epi{xsq, bias, qsq, gmin, rank, n, n / GROUP, b, metric};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    stage_gmin_scan_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), xsq, bias, q, qsq, gmin, rank, n, ld, dims, b,
-        metric);
-  else
-    stage_gmin_scan_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), xsq, bias, q, qsq, gmin, rank, n, ld, dims, b, metric);
-  return (int)cudaGetLastError();
+  if (x_bf16) return (int)wg::scan<wg::Bf16>(x, ldx, q, nullptr, ldq, n, dims, b, epi, st);
+  return (int)wg::scan<wg::Tf32x3>(x, ldx, q, q_lo, ldq, n, dims, b, epi, st);
 }
 
 // signs: [n, d] int8 (±1) with row stride lds bytes; valid: [n] int8 (0 =

@@ -1,6 +1,7 @@
 // The tensor-core scan skeleton shared by K1 gmin_scan (csrc/flat_scan.cu),
-// K3 int8_gmin_scan (csrc/int8_scan.cu) and K6 sign_scan
-// (csrc/adaptive_scan.cu).
+// K3 int8_gmin_scan (csrc/int8_scan.cu), K5 stage_gmin_scan and K6
+// sign_scan (csrc/adaptive_scan.cu) and the MaxSim maxsim_rank_scan
+// (csrc/maxsim.cu).
 //
 // Each kernel takes the dots of rows x [n, d] against queries q [b, d] on
 // the tensor cores, then reduces each 64-row group of every query column in
@@ -8,11 +9,11 @@
 // policy (Op below):
 // - S8 (K3, K6): wgmma.m64nNk32.s32.s8.s8, both operands K-major from shared
 //   memory. The int32 dot is exact, so the order of summation is free.
-// - Bf16 (K1 on bf16 blocks): wgmma.m64nNk16.f32.bf16.bf16, both operands
-//   K-major from shared memory. A product of two bf16 values is exact in
-//   the f32 accumulator; only the order of summation differs from any
-//   other f32 sum.
-// - Tf32x3 (K1 on f32 blocks): three wgmma.m64nNk8.f32.tf32.tf32 per k-step,
+// - Bf16 (K1, K5 and MaxSim on bf16 blocks): wgmma.m64nNk16.f32.bf16.bf16,
+//   both operands K-major from shared memory. A product of two bf16 values
+//   is exact in the f32 accumulator; only the order of summation differs
+//   from any other f32 sum.
+// - Tf32x3 (K1, K5 and MaxSim on f32 blocks): three wgmma.m64nNk8.f32.tf32.tf32 per k-step,
 //   x.q ~ x_lo.q_hi + x_hi.q_lo + x_hi.q_hi, each v_hi being v rounded to
 //   TF32 (cvt.rna.tf32.f32: 10 mantissa bits) and v_lo = v - v_hi, exact in
 //   f32. The tensor cores read shared memory only as its TF32 truncation,
@@ -52,7 +53,12 @@
 //   consumers.
 // - Each consumer warpgroup then runs its epilogue on its own accumulator,
 //   with a shared-memory region of its own outside the ring (Frame); the
-//   epilogues take the group-min of every column with column_min below.
+//   group-min epilogues take the min of every column with column_min below.
+// - A chunked kernel (MaxSim over docs of T >= 256 token rows) walks work
+//   items of `chunks` consecutive 128-row tiles against one query tile: the
+//   block runs them one after another (the chunk of a tile is its row tile
+//   modulo chunks), so that its epilogue can carry a running reduction from
+//   one chunk to the next in its region. The other kernels are chunks = 1.
 //
 // Operands must be 16-byte aligned with a row stride that is a multiple of
 // 16 bytes (TMA's rule). The Python wrappers copy other operands into a
@@ -97,6 +103,7 @@ struct Layout {
   static_assert(STAGES >= 2, "the ring needs two stages");
   static_assert(STAGE % 1024 == 0, "stages must keep the 128-byte swizzle atoms aligned");
   static_assert(EPI % 16 == 0, "epilogue tiles are read 16 bytes at a time");
+  static_assert(EPI_TILE == 0, "a region starts with its tile (peer_tile)");
   static_assert(ALLOC <= SMEM_MAX, "the ring must fit a block's shared memory");
 };
 
@@ -436,18 +443,25 @@ __device__ __forceinline__ float as(float, int v) { return __int_as_float(v); }
 __device__ __forceinline__ float as(float, float v) { return v; }
 __device__ __forceinline__ int as(int, int v) { return v; }
 
-// The min over the 64 rows of every query column of a warpgroup's tile,
-// whose registers hold T values (floats as themselves or as their bits in
-// an int accumulator). Each thread first takes the min of its two rows.
-// The 8 lanes of a warp that share columns (lane bits 2-4) then reduce 8
-// columns at a time and scatter them: at each of the three exchanges (xor
-// 16, 8, 4) a lane keeps half of its columns and sends the other half, so
-// 7 shuffles leave each lane with one column's min over the warp's 16 rows
-// (24 for a plain butterfly on every column). The 4 warps meet through red
-// [4][QN]. Ends on the warpgroup's barrier `bar`; red[col] then holds
-// column col's min for the caller to store.
-template <int QN, typename T, typename A>
-__device__ __forceinline__ void column_min(const A (&acc)[QN / 2], T* red, int t, int bar) {
+struct Min {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const { return min2(a, b); }
+};
+struct Max {
+  __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
+};
+
+// red[w][col] = the reduction (op: Min or Max) over warp w's 16 rows of
+// every query column of a warpgroup's tile, whose registers hold T values
+// (floats as themselves or as their bits in an int accumulator). Each
+// thread first reduces its two rows. The 8 lanes of a warp that share
+// columns (lane bits 2-4) then reduce 8 columns at a time and scatter them:
+// at each of the three exchanges (xor 16, 8, 4) a lane keeps half of its
+// columns and sends the other half, so 7 shuffles leave each lane with one
+// column's value over the warp's 16 rows (24 for a plain butterfly on every
+// column). red is [4][QN]; no barrier.
+template <int QN, typename T, class Op, typename A>
+__device__ __forceinline__ void warp_columns(const A (&acc)[QN / 2], T* red, int t, Op op) {
   const int w = t / 32, l = t % 32;
   const bool hi4 = l & 16, hi3 = l & 8, hi2 = l & 4;
 #pragma unroll
@@ -457,18 +471,27 @@ __device__ __forceinline__ void column_min(const A (&acc)[QN / 2], T* red, int t
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int i = 4 * (j0 + k / 2) + k % 2;
-      v[k] = min2(as(T(), acc[i]), as(T(), acc[i + 2]));
+      v[k] = op(as(T(), acc[i]), as(T(), acc[i + 2]));
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      v[k] = min2(hi4 ? v[k + 4] : v[k], __shfl_xor_sync(0xffffffffu, hi4 ? v[k] : v[k + 4], 16));
+      v[k] = op(hi4 ? v[k + 4] : v[k], __shfl_xor_sync(0xffffffffu, hi4 ? v[k] : v[k + 4], 16));
 #pragma unroll
     for (int k = 0; k < 2; ++k)
-      v[k] = min2(hi3 ? v[k + 2] : v[k], __shfl_xor_sync(0xffffffffu, hi3 ? v[k] : v[k + 2], 8));
-    v[0] = min2(hi2 ? v[1] : v[0], __shfl_xor_sync(0xffffffffu, hi2 ? v[0] : v[1], 4));
+      v[k] = op(hi3 ? v[k + 2] : v[k], __shfl_xor_sync(0xffffffffu, hi3 ? v[k] : v[k + 2], 8));
+    v[0] = op(hi2 ? v[1] : v[0], __shfl_xor_sync(0xffffffffu, hi2 ? v[0] : v[1], 4));
     const int k = l / 4;  // the column this lane now holds: 4 hi4 + 2 hi3 + hi2
     red[w * QN + acc_col(t, j0 + k / 2, k % 2)] = v[0];
   }
+}
+
+// The min over the 64 rows of every query column of a warpgroup's tile:
+// warp_columns, then the 4 warps meet through red [4][QN]. Ends on the
+// warpgroup's barrier `bar`; red[col] then holds column col's min for the
+// caller to store.
+template <int QN, typename T, typename A>
+__device__ __forceinline__ void column_min(const A (&acc)[QN / 2], T* red, int t, int bar) {
+  warp_columns<QN, T>(acc, red, t, Min());
   named_sync(bar, 128);
   for (int col = t; col < QN; col += 128)
     red[col] = min2(min2(red[col], red[QN + col]), min2(red[2 * QN + col], red[3 * QN + col]));
@@ -477,7 +500,7 @@ __device__ __forceinline__ void column_min(const A (&acc)[QN / 2], T* red, int t
 
 // What the epilogue of one consumer warpgroup is given: its own shared
 // memory (Layout's EPI_* regions), its thread, its named barrier, its
-// group and the tile's first query.
+// group (the warpgroup is g % 2 of its tile) and the tile's first query.
 struct Frame {
   int16_t* tile;  // [64][TILE_LD]
   void* red;      // [4][QN] floats or ints
@@ -488,6 +511,18 @@ struct Frame {
   int q0;         // the tile's first query
 };
 
+// the named barrier of both consumer warpgroups (256 threads); 2 and 3 are
+// each warpgroup's own
+constexpr int CONSUMERS_BAR = 1;
+
+// the other consumer warpgroup's tile: the two epilogue regions lie side by
+// side, and their size does not depend on the policy's query buffers
+template <int QN>
+__device__ __forceinline__ int16_t* peer_tile(const Frame& f) {
+  constexpr int EPI = Layout<QN, 1>::EPI;
+  return reinterpret_cast<int16_t*>(reinterpret_cast<uint8_t*>(f.tile) + (f.g % 2 ? -EPI : EPI));
+}
+
 // ---- the kernel --------------------------------------------------------------
 //
 // Epi provides, for each tile and each consumer warpgroup whose group lies
@@ -496,16 +531,18 @@ struct Frame {
 // memory, so the loads' latency hides behind the products; and
 // finish<QN>(acc, frame, pre) after it, which writes only its warpgroup's
 // region and starts on the warpgroup's barrier (the previous tile's
-// readers of the region are done).
+// readers of the region are done). CHUNKED kernels walk work items of
+// `chunks` row tiles; the others take chunks as 1, whatever is passed.
 
-template <class Op, int QN, class Epi>
+template <class Op, int QN, class Epi, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
             const __grid_constant__ CUtensorMap qmap2, const Epi epi, int ng, int nk, int nqt,
-            int tiles) {
+            int items, int chunks) {
   using L = Layout<QN, Op::QBUFS>;
   using Acc = typename Op::Acc;
   constexpr int KE = KB / Op::ELEM;  // elements of d per stage
+  const int nc = CHUNKED ? chunks : 1;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
@@ -526,17 +563,19 @@ scan_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (tid == 0) {
       int s = 0, ph = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int q0 = (tile % nqt) * QN, row0 = (tile / nqt) * ROWS;
-        for (int kb = 0; kb < nk; ++kb) {
-          mbar_wait(&empty[s], ph ^ 1);
-          mbar_expect_tx(&full[s], L::STAGE);
-          uint8_t* stage = smem + s * L::STAGE;
-          tma_load(stage, &xmap, kb * KE, row0, &full[s]);
-          tma_load(stage + A_BYTES, &qmap, kb * KE, q0, &full[s]);
-          if constexpr (Op::QBUFS == 2)
-            tma_load(stage + A_BYTES + QN * KB, &qmap2, kb * KE, q0, &full[s]);
-          if (++s == L::STAGES) s = 0, ph ^= 1;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        for (int c = 0; c < nc; ++c) {
+          const int q0 = (item % nqt) * QN, row0 = ((item / nqt) * nc + c) * ROWS;
+          for (int kb = 0; kb < nk; ++kb) {
+            mbar_wait(&empty[s], ph ^ 1);
+            mbar_expect_tx(&full[s], L::STAGE);
+            uint8_t* stage = smem + s * L::STAGE;
+            tma_load(stage, &xmap, kb * KE, row0, &full[s]);
+            tma_load(stage + A_BYTES, &qmap, kb * KE, q0, &full[s]);
+            if constexpr (Op::QBUFS == 2)
+              tma_load(stage + A_BYTES + QN * KB, &qmap2, kb * KE, q0, &full[s]);
+            if (++s == L::STAGES) s = 0, ph ^= 1;
+          }
         }
       }
     }
@@ -550,10 +589,11 @@ scan_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
 #pragma unroll
     for (int i = 0; i < QN / 2; ++i) acc[i] = 0;
     int s = 0, ph = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // the block's tiles: chunk c of work item `item`
+    for (int item = blockIdx.x, c = 0; item < items;) {
       const Frame frame{reinterpret_cast<int16_t*>(region + L::EPI_TILE), region + L::EPI_RED,
                         reinterpret_cast<float*>(region + L::EPI_SIDE), t, 2 + wgc,
-                        (tile / nqt) * 2 + wgc, (tile % nqt) * QN};
+                        ((item / nqt) * nc + c) * 2 + wgc, (item % nqt) * QN};
       const bool inside = frame.g < ng;
       typename Epi::Pre pre{};
       if (inside) pre = epi.template prefetch<QN>(frame);
@@ -579,6 +619,7 @@ scan_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         if (t % 32 == 0) mbar_arrive(&empty[prev]);
       }
       if (inside) epi.template finish<QN>(acc, frame, pre);
+      if (++c == nc) c = 0, item += gridDim.x;
     }
   }
 }
@@ -623,9 +664,13 @@ bool encode(CUtensorMap* map, const void* base, int rows, int d, int64_t ld, int
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <class Op, int QN, class Epi>
+// Launches the persistent grid over the row tiles of x [n, d] (a group
+// lies inside n when its first row does) and the QN-query tiles of q
+// [b, d]; a CHUNKED kernel walks work items of `chunks` consecutive row
+// tiles (the row tiles a multiple of chunks).
+template <class Op, int QN, class Epi, bool CHUNKED = false>
 cudaError_t launch(const void* x, int64_t ldx, const void* q, const void* q2, int64_t ldq, int n,
-                   int d, int b, const Epi& epi, cudaStream_t stream) {
+                   int d, int b, const Epi& epi, cudaStream_t stream, int chunks = 1) {
   using L = Layout<QN, Op::QBUFS>;
   CUtensorMap xmap, qmap, qmap2;
   if (!encode<Op>(&xmap, x, n, d, ldx, ROWS) || !encode<Op>(&qmap, q, b, d, ldq, QN))
@@ -635,7 +680,7 @@ cudaError_t launch(const void* x, int64_t ldx, const void* q, const void* q2, in
   } else {
     qmap2 = qmap;  // unread
   }
-  auto kernel = scan_kernel<Op, QN, Epi>;
+  auto kernel = scan_kernel<Op, QN, Epi, CHUNKED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::ALLOC);
   int device = 0, sms = 0;
@@ -643,13 +688,15 @@ cudaError_t launch(const void* x, int64_t ldx, const void* q, const void* q2, in
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
+  const int row_tiles = (n + ROWS - 1) / ROWS;
+  if (chunks < 1 || (CHUNKED ? row_tiles % chunks : chunks != 1)) return cudaErrorInvalidValue;
   const int nqt = (b + QN - 1) / QN;
-  const int64_t tiles = static_cast<int64_t>((n + ROWS - 1) / ROWS) * nqt;
-  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
+  const int64_t items = static_cast<int64_t>(row_tiles / chunks) * nqt;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  const int blocks = static_cast<int>(items < sms ? items : sms);
   const int nk = static_cast<int>((static_cast<int64_t>(d) * Op::ELEM + KB - 1) / KB);
-  kernel<<<blocks, THREADS, L::ALLOC, stream>>>(xmap, qmap, qmap2, epi, n / GROUP, nk, nqt,
-                                                static_cast<int>(tiles));
+  kernel<<<blocks, THREADS, L::ALLOC, stream>>>(xmap, qmap, qmap2, epi, (n + GROUP - 1) / GROUP,
+                                                nk, nqt, static_cast<int>(items), chunks);
   return cudaGetLastError();
 }
 
@@ -658,16 +705,23 @@ inline bool tma_ok(const void* p, int64_t ld, int64_t row_bytes) {
          ld >= row_bytes;
 }
 
-// The shared entry: checks what TMA needs (16-byte aligned bases, row
-// strides in bytes a multiple of 16 and at least a row), picks the query
-// tile from b, and launches. q2 is the second query operand (Tf32x3's
+// What TMA needs of the operands: 16-byte aligned bases, row strides in
+// bytes a multiple of 16 and at least a row of d elements; q2 (Tf32x3's
+// q_lo, with q's stride) only for two-buffer policies.
+template <class Op>
+bool operands_ok(const void* x, int64_t ldx, const void* q, const void* q2, int64_t ldq, int d) {
+  const int64_t row = static_cast<int64_t>(d) * Op::ELEM;
+  return d > 0 && tma_ok(x, ldx, row) && tma_ok(q, ldq, row) &&
+         (Op::QBUFS == 1 || tma_ok(q2, ldq, row));
+}
+
+// The shared entry of the group scans: checks the operands, picks the
+// query tile from b, and launches. q2 is the second query operand (Tf32x3's
 // q_lo, with q's stride), unused by the other policies. n % 64 == 0.
 template <class Op, class Epi>
 cudaError_t scan(const void* x, int64_t ldx, const void* q, const void* q2, int64_t ldq, int n,
                  int d, int b, const Epi& epi, cudaStream_t stream) {
-  const int64_t row = static_cast<int64_t>(d) * Op::ELEM;
-  if (n <= 0 || n % GROUP || d <= 0 || b <= 0 || !tma_ok(x, ldx, row) || !tma_ok(q, ldq, row) ||
-      (Op::QBUFS == 2 && !tma_ok(q2, ldq, row)))
+  if (n <= 0 || n % GROUP || b <= 0 || !operands_ok<Op>(x, ldx, q, q2, ldq, d))
     return cudaErrorInvalidValue;
   if (b <= 64) return launch<Op, 64>(x, ldx, q, q2, ldq, n, d, b, epi, stream);
   if (b <= 128 || Op::QN_MAX == 128)

@@ -29,7 +29,8 @@ The adaptive pipelines (``ops/pipeline.py``) run three more kernels
 
 * **K5** ``stage_gmin_scan`` — funnel stage 1: the true stage metric over
   the first ``dims`` columns, its 64-row group minima AND the full ``[B, N]``
-  rank matrix, in one pass (``fused_stage_candidates`` selects from them);
+  rank matrix, in one pass (``fused_stage_candidates`` selects from them),
+  on K1's tensor-core mainloop and operand policies;
 * **K6** ``fused_sign_scan`` — quantized stage 1: Hamming distances of ±1
   int8 sign rows, their 64-row group minima and the ``[B, N]`` int16
   Hamming matrix, in one pass, on the int8 tensor cores;
@@ -42,9 +43,10 @@ The adaptive pipelines (``ops/pipeline.py``) run three more kernels
 
 * **K3** ``int8_gmin_scan`` — int8 x int8 exact int32 dots, dequantized by
   the row and query scales, the K1 rank and its 64-row group minima. K1,
-  K3 and K6 share one tensor-core scan skeleton (``csrc/wgmma_scan.cuh``),
-  fed by TMA; ``ROUTES`` counts whether their operands were read in place
-  or first copied to a stride TMA can address;
+  K3, K5 and K6 share one tensor-core scan skeleton (``csrc/wgmma_scan.cuh``),
+  fed by TMA, with the MaxSim scan (``ops/maxsim.py``); ``ROUTES`` counts
+  whether their operands were read in place or first copied to a stride
+  TMA can address;
 * **K4** ``int8_rescore`` — the selected groups' int8 rows against the full
   f32 query, dequantized after the sum.
 
@@ -95,6 +97,7 @@ LAUNCHES = {"gmin_scan": 0, "rescore": 0, "int8_gmin_scan": 0, "int8_rescore": 0
 #: through ``_tma_rows``'s copy
 ROUTES = {"gmin_scan": {"direct": 0, "padded": 0},
           "int8_gmin_scan": {"direct": 0, "padded": 0},
+          "stage_gmin_scan": {"direct": 0, "padded": 0},
           "sign_scan": {"direct": 0, "padded": 0}}
 
 
@@ -409,22 +412,24 @@ def _check_int8_operands(x8, scale, xsq, bias, q, q_dtype):
             raise ValueError(f"operands on {t.device} and {x8.device}")
 
 
-def _tma_rows(t):
-    """``t`` [rows, d] (contiguous, any element size) as TMA can read it:
-    ``(rows, row stride in bytes, copied)``. TMA needs a 16-byte aligned
-    base and a row stride that is a multiple of 16 bytes; any other block (a
-    row of bytes off 16, a view at an odd offset) is copied into a
-    zero-padded one with the next such stride. The kernel reads only the
-    first ``d`` elements of each row. A tensor that is not contiguous
-    raises: its row stride is not ``d`` elements."""
+def _tma_rows(t, cols=None):
+    """``t`` [rows, d] (contiguous, any element size) as TMA can read its
+    first ``cols`` columns (all by default): ``(rows, row stride in bytes,
+    copied)``. TMA needs a 16-byte aligned base and a row stride that is a
+    multiple of 16 bytes; any other block (a row of bytes off 16, a view at
+    an odd offset) has its first ``cols`` columns copied into a zero-padded
+    block with the next such stride. The kernel reads only the first
+    ``cols`` elements of each row. A tensor that is not contiguous raises:
+    its row stride is not ``d`` elements."""
     if not t.is_contiguous():
         raise ValueError("kernel operands must be contiguous")
     d, size = t.shape[1], t.element_size()
+    cols = d if cols is None else cols
     if (d * size) % 16 == 0 and t.data_ptr() % 16 == 0:
         return t, d * size, False
-    ld = -(-d * size // 16) * 16 // size
+    ld = -(-cols * size // 16) * 16 // size
     padded = t.new_zeros((t.shape[0], ld))
-    padded[:, :d] = t
+    padded[:, :cols] = t[:, :cols]
     return padded, ld * size, True
 
 
@@ -629,7 +634,11 @@ def stage_gmin_scan(x, xsq, bias, q, *, metric, dims):
     ``x`` [N, d] f32 or bf16 (only its first ``dims`` columns are read, with
     row stride d — no prefix copy), ``xsq`` [N] f32 PREFIX squared norms,
     ``bias`` [N] f32 (0 valid / +inf invalid), ``q`` [B, d] f32. ``bounded``
-    is the Cauchy-Schwarz overflow proof of ``gmin_scan`` over the prefix."""
+    is the Cauchy-Schwarz overflow proof of ``gmin_scan`` over the prefix.
+    On the card K5 runs K1's tensor-core policies: f32 blocks take 3xTF32
+    products of the split query prefix (within ``K5_ATOL`` of the plain f32
+    version), bf16 blocks bf16 products. A block whose row stride TMA cannot
+    address has its prefix copied first (``ROUTES["stage_gmin_scan"]``)."""
     _check_operands(x, xsq, bias, q)
     if metric not in FUSED_METRICS:
         raise ValueError(f"stage_gmin_scan has no metric {metric!r}")
@@ -645,17 +654,25 @@ def stage_gmin_scan(x, xsq, bias, q, *, metric, dims):
         raise ValueError(f"stage_gmin_scan runs on cuda or cpu tensors, not {x.device}")
     from .. import _build
 
-    n, d = x.shape
+    if not all(t.is_contiguous() for t in (xsq, bias)):
+        raise ValueError("kernel operands must be contiguous")
+    n = x.shape[0]
     b = q.shape[0]
-    qs = _scan_query(x, qp).contiguous()
+    qp = qp.contiguous()
+    parts = (_bf16_query(qp),) if x.dtype == torch.bfloat16 else tf32_split(qp)
+    xt, ldx, x_copied = _tma_rows(x, dims)
+    qts = [_tma_rows(t) for t in parts]
     gmin = torch.empty((b, n // GROUP), dtype=torch.float32, device=x.device)
     rank = torch.empty((b, n), dtype=torch.float32, device=x.device)
     lib = _build.load()
-    code = lib.vt_stage_gmin_scan(*_launch_args(x, xsq, bias, qs, qsq), gmin.data_ptr(),
-                                  rank.data_ptr(), n, d, dims, b, FUSED_METRICS.index(metric),
+    code = lib.vt_stage_gmin_scan(xt.data_ptr(), ldx, int(x.dtype == torch.bfloat16),
+                                  xsq.data_ptr(), bias.data_ptr(), qts[0][0].data_ptr(),
+                                  qts[-1][0].data_ptr(), qts[0][1], qsq.data_ptr(),
+                                  gmin.data_ptr(), rank.data_ptr(), n, dims, b,
+                                  FUSED_METRICS.index(metric),
                                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "stage_gmin_scan")
-    LAUNCHES["stage_gmin_scan"] += 1
+    _count_route("stage_gmin_scan", x_copied, *(copied for _t, _ld, copied in qts))
     return gmin, rank, bounded
 
 

@@ -15,14 +15,15 @@ when that is lossless: ``put_token_block``) against query token sets:
 * ``maxsim_full_topk_batch`` — a batch of query sets over doc chunks, for
   every metric (plain torch; the JAX package leaves it to XLA);
 * ``fused_maxsim_topk_batch`` — the dot-family full scan: the hand-written
-  CUDA kernel ``maxsim_rank_scan`` (``csrc/maxsim.cu``) writes the ``[B,
-  N]`` rank matrix in one pass over the block, the group cover selects
-  candidates (K7 gathers their group rows), and
-  ``maxsim_subset_topk_batch`` re-scores the winners in full f32.
+  CUDA kernel ``maxsim_rank_scan`` (``csrc/maxsim.cu``, on the tensor-core
+  scan skeleton ``csrc/wgmma_scan.cuh``: bf16 products for bf16 blocks,
+  3xTF32 for f32 blocks) writes the ``[B, N]`` rank matrix in one pass over
+  the block, the group cover selects candidates (K7 gathers their group
+  rows), and ``maxsim_subset_topk_batch`` re-scores the winners in full f32.
 
 The kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors; any other device raises. Its launches are
-counted in ``LAUNCHES``.
+counted in ``LAUNCHES``, and by operand route in ``ROUTES``.
 """
 
 from __future__ import annotations
@@ -36,16 +37,24 @@ from ..errors import DimensionMismatch, InvalidVector, ScoreOverflow
 from ..metrics import similarity_value, validate_metric
 from . import select
 from .distance import _check_f32, _raw_f64, no_tf32, validate_vector
-from .flat_scan import GROUP, _group_rows, extract_group_rows
+from .flat_scan import GROUP, _group_rows, _tma_rows, extract_group_rows, tf32_split
 from .topk import lex_sort, smallest
 
 #: kernel launch counts, by kernel name
 LAUNCHES = {"maxsim_rank_scan": 0}
 
+#: launches of the MaxSim scan by operand route: "direct" when TMA reads the
+#: token block and the query tokens in place, "padded" when the wrapper
+#: first copied the block (tokens per doc off the kernel's counts, see
+#: ``kernel_tokens``) or gave a block or the queries a row stride TMA can
+#: address (``flat_scan._tma_rows``). Padding the query sets to a power of
+#: two copies only the small query and is not counted.
+ROUTES = {"maxsim_rank_scan": {"direct": 0, "padded": 0}}
+
 FUSED_MV_METRICS = ("cosine", "inner_product", "negative_inner_product")
 
-#: most query tokens per set the kernel takes: one block keeps a running max
-#: per (doc, query token) of a whole set in 8,192 shared-memory cells
+#: most query tokens per set the kernel takes: a set wider than the kernel's
+#: query tile writes one [B, N] part of its totals per tile, summed after
 MAX_QUERY_TOKENS = 8192
 
 _BIG32 = 2**31 - 1
@@ -60,6 +69,16 @@ def _row_sq_sums(x2):
         c = x2[s:s + _SQ_CHUNK].float()
         out[s:s + _SQ_CHUNK] = (c * c).sum(dim=1)
     return out
+
+
+def token_norms(tokens):
+    """``(tsq, tinv)`` of a token block ``[N, T, d]``: for every token row
+    ``[N * T]`` f32, its squared norm and its inverse norm ``1 / sqrt(tsq)``
+    (0 for a zero row). The scan cache keeps them beside its block: the
+    MaxSim scan takes ``tinv`` for cosine, and ``tsq`` bounds the dot
+    metrics' totals."""
+    tsq = _row_sq_sums(tokens.reshape(-1, tokens.shape[-1]))
+    return tsq, torch.where(tsq > 0.0, 1.0 / tsq.sqrt(), torch.zeros_like(tsq))
 
 
 def is_bf16_exact(mat: np.ndarray) -> bool:
@@ -390,24 +409,63 @@ def supports_fused(metric: str, cap: int, qmax: int) -> bool:
     limits: a dot-family metric (the kernel computes dots; the other metrics
     take ``maxsim_full_topk_batch``); ``cap`` a multiple of 64 and at least
     64 (the group cover selects 64-doc groups); at most ``MAX_QUERY_TOKENS``
-    tokens per query set (the kernel's running max). Any d, T and query
-    count run."""
+    tokens per query set. Any d, T and query count run."""
     return (metric in FUSED_MV_METRICS and cap >= GROUP and cap % GROUP == 0
             and 0 < qmax <= MAX_QUERY_TOKENS)
 
 
-def _maxsim_rank_scan_ref(tokens, counts, dbias, qt, qinv, *, b, metric):
+def kernel_tokens(t: int) -> int:
+    """The tokens per doc the MaxSim kernel takes for a block of ``t``: the
+    next power of two up to 128 (a 128-row tile then holds whole docs),
+    else the next multiple of 128 (a doc spans whole tiles). The scan
+    cache's blocks already have such a ``t``."""
+    return 1 << (t - 1).bit_length() if t <= 128 else -(-t // 128) * 128
+
+
+def query_tile(cols: int, bf16: bool) -> int:
+    """The MaxSim kernel's query tile for ``cols`` query tokens: 64, 128, or
+    256 (bf16 blocks only: the 3xTF32 stages carry two query buffers). A
+    set of Q tokens (a power of two) lies whole in one tile when Q is at
+    most the tile, else across Q / tile tiles."""
+    if cols <= 64:
+        return 64
+    return 128 if cols <= 128 or not bf16 else 256
+
+
+def _kernel_operands(tokens, tinv, qt, qinv, *, b):
+    """The MaxSim operands as the kernel takes them: T tokens per doc grown
+    to ``kernel_tokens(T)`` with zero token rows (``tinv`` 0), and Q query
+    tokens per set to the next power of two with zero rows (``qinv`` 0):
+    each adds exactly 0 to a live doc's total. Returns ``(tokens [N, Tk,
+    d], tinv [N * Tk] or None, qt [B * Qk, d], qinv [B * Qk], copied)``,
+    ``copied`` True when the token block was."""
+    n, t, d = tokens.shape
+    nq = qt.shape[0] // b
+    tk, qk = kernel_tokens(t), 1 << (nq - 1).bit_length()
+    if tk != t:
+        grown = tokens.new_zeros((n, tk, d))
+        grown[:, :t] = tokens
+        tokens = grown
+        if tinv is not None:
+            tinv = torch.nn.functional.pad(tinv.reshape(n, t), (0, tk - t)).reshape(-1)
+    if qk != nq:
+        qt = torch.nn.functional.pad(qt.reshape(b, nq, d), (0, 0, 0, qk - nq)).reshape(-1, d)
+        qinv = torch.nn.functional.pad(qinv.reshape(b, nq), (0, qk - nq)).reshape(-1)
+    return tokens, tinv, qt.contiguous(), qinv.contiguous(), tk != t
+
+
+def _maxsim_rank_scan_ref(tokens, counts, dbias, qt, qinv, *, b, metric, tinv=None):
     """Plain PyTorch version of ``maxsim_rank_scan``: the same [B, N] ranks
     from a full [N*T, B*Q] similarity matrix (cosine: ``(dot * tinv) *
-    qinv`` clipped to [-1, 1], ``tinv = 1 / sqrt(tsq)``)."""
+    qinv`` clipped to [-1, 1], ``tinv`` of ``token_norms`` unless given)."""
     n, t, d = tokens.shape
     nq = qt.shape[0] // b
     x2 = tokens.reshape(n * t, d)
     no_tf32(qt)
     sim = x2.float() @ qt.T  # [N*T, B*Q]
     if metric == "cosine":
-        tsq = _row_sq_sums(x2)
-        tinv = torch.where(tsq > 0.0, 1.0 / tsq.sqrt(), torch.zeros_like(tsq))
+        if tinv is None:
+            tinv = token_norms(tokens)[1]
         sim = (sim * tinv[:, None] * qinv[None, :]).clamp(-1.0, 1.0)
     sim = sim.reshape(n, t, b, nq)
     live = torch.arange(t, device=tokens.device)[None, :] < counts[:, None]
@@ -417,7 +475,7 @@ def _maxsim_rank_scan_ref(tokens, counts, dbias, qt, qinv, *, b, metric):
     return (rank + dbias[:, None]).T.contiguous()
 
 
-def maxsim_rank_scan(tokens, counts, dbias, qt, qinv, *, b, metric):
+def maxsim_rank_scan(tokens, counts, dbias, qt, qinv, *, b, metric, tinv=None):
     """The ``[B, N]`` MaxSim rank matrix: ``rank[b, n] = -sum over the set's
     Q query tokens of the max over doc n's live tokens of sim``, exactly 0
     for a zero-token doc, plus ``dbias`` (+inf on dead docs).
@@ -426,10 +484,12 @@ def maxsim_rank_scan(tokens, counts, dbias, qt, qinv, *, b, metric):
     int32 live tokens per doc (T for every doc of a uniform block),
     ``dbias`` [N] f32, ``qt`` [B*Q, d] f32 query
     tokens, set-major (pad query tokens are zero rows), ``qinv`` [B*Q] f32
-    inverse query-token norms (cosine; ignored otherwise). Under bf16
-    storage the queries are rounded to bf16 for the dots (bf16 x bf16
-    products, exact in f32), as the JAX kernel casts them to the storage
-    dtype."""
+    inverse query-token norms (cosine; ignored otherwise), ``tinv`` [N*T]
+    f32 inverse token norms (cosine; ``token_norms`` computes them when not
+    given). Under bf16 storage the queries are rounded to bf16 for the dots
+    (bf16 x bf16 products, exact in f32), as the JAX kernel casts them to
+    the storage dtype. On the card f32 blocks take 3xTF32 products, within
+    ``MV_RTOL`` of the plain f32 version."""
     if metric not in FUSED_MV_METRICS:
         raise ValueError(f"maxsim_rank_scan has no metric {metric!r}")
     if tokens.dim() != 3 or tokens.dtype not in (torch.float32, torch.bfloat16):
@@ -446,43 +506,61 @@ def maxsim_rank_scan(tokens, counts, dbias, qt, qinv, *, b, metric):
             raise TypeError(f"{name} must be float32 of shape {shape}")
     if counts.dtype != torch.int32 or tuple(counts.shape) != (n,):
         raise TypeError(f"counts must be int32 of shape {(n,)}")
-    for tensor in (counts, dbias, qt, qinv):
+    cosine = metric == "cosine"
+    if cosine and tinv is None:
+        tinv = token_norms(tokens)[1]
+    if tinv is not None and (tinv.dtype != torch.float32 or tuple(tinv.shape) != (n * t,)):
+        raise TypeError(f"tinv must be float32 of shape {(n * t,)}")
+    for tensor in (counts, dbias, qt, qinv) + ((tinv,) if tinv is not None else ()):
         if tensor.device != tokens.device:
             raise ValueError(f"operands on {tensor.device} and {tokens.device}")
-    qs = qt.to(torch.bfloat16).float() if tokens.dtype == torch.bfloat16 else qt
+    bf16 = tokens.dtype == torch.bfloat16
     if tokens.device.type == "cpu":
-        return _maxsim_rank_scan_ref(tokens, counts, dbias, qs, qinv, b=b, metric=metric)
+        qs = qt.to(torch.bfloat16).float() if bf16 else qt
+        return _maxsim_rank_scan_ref(tokens, counts, dbias, qs, qinv, b=b, metric=metric,
+                                     tinv=tinv)
     if not tokens.is_cuda:
         raise ValueError(f"maxsim_rank_scan runs on cuda or cpu tensors, not {tokens.device}")
     from .. import _build
 
     if not all(tensor.is_contiguous() for tensor in (tokens, counts, dbias, qinv)):
         raise ValueError("kernel operands must be contiguous")
-    qs = qs.contiguous()
-    out = torch.empty((b, n), dtype=torch.float32, device=tokens.device)
+    tokens, tinv, qt, qinv, copied = _kernel_operands(
+        tokens, tinv.contiguous() if tinv is not None else None, qt, qinv, b=b)
+    tk, nq = tokens.shape[1], qt.shape[0] // b
+    parts = (qt.to(torch.bfloat16),) if bf16 else tf32_split(qt)
+    xt, ldx, x_copied = _tma_rows(tokens.view(n * tk, d))
+    qts = [_tma_rows(part) for part in parts]
+    qn = query_tile(b * nq, bf16)
+    out = torch.empty((max(1, nq // qn), b, n), dtype=torch.float32, device=tokens.device)
     lib = _build.load()
     code = lib.vt_maxsim_rank_scan(
-        tokens.data_ptr(), int(tokens.dtype == torch.bfloat16),
-        counts.data_ptr(), dbias.data_ptr(), qs.data_ptr(),
-        qinv.data_ptr(), out.data_ptr(), n, t, d, b, nq, int(metric == "cosine"),
+        xt.data_ptr(), ldx, int(bf16), counts.data_ptr(), dbias.data_ptr(),
+        tinv.data_ptr() if cosine else None, qts[0][0].data_ptr(), qts[-1][0].data_ptr(),
+        qts[0][1], qinv.data_ptr(), out.data_ptr(), n, tk, d, b, nq, qn, int(cosine),
         torch.cuda.current_stream(tokens.device).cuda_stream)
     _build.check(code, "maxsim_rank_scan")
     LAUNCHES["maxsim_rank_scan"] += 1
-    return out
+    copied = copied or x_copied or any(c for _t, _ld, c in qts)
+    ROUTES["maxsim_rank_scan"]["padded" if copied else "direct"] += 1
+    # a set wider than the query tile: its parts' totals, summed in order
+    return out[0] if out.shape[0] == 1 else out.sum(dim=0)
 
 
 def fused_maxsim_topk_batch(tokens, token_counts, valid, qtok, qmask, *,
-                            metric: str, limit: int):
+                            metric: str, limit: int, norms=None):
     """Fused full-corpus MaxSim top-k: the rank scan kernel, group-cover
     candidate selection, and a full-f32 subset rerank of the winners.
 
     Same contract as :func:`maxsim_full_topk_batch` (slots in cache-lex
-    order, (score desc, slot asc) ties, ``ok`` per query). Candidate
-    selection ranks with the storage dtype (bf16 blocks select with bf16
-    dots — the flat bf16 posture); the returned scores come from
+    order, (score desc, slot asc) ties, ``ok`` per query). ``norms`` is
+    ``token_norms(tokens)`` (the scan cache's), computed here when None.
+    Candidate selection ranks with the storage dtype (bf16 blocks select
+    with bf16 dots — the flat bf16 posture); the returned scores come from
     ``maxsim_subset_topk_batch``, so they match the plain path's values."""
     cap, t, d = tokens.shape
     b, qmax = qtok.shape[0], qtok.shape[1]
+    tsq, tinv = token_norms(tokens) if norms is None else norms
     qf = qtok.float()
     qsq = (qf * qf).sum(dim=2)  # [B, Q]
     if metric == "cosine":
@@ -493,11 +571,10 @@ def fused_maxsim_topk_batch(tokens, token_counts, valid, qtok, qmask, *,
         qinv = torch.ones_like(qsq)
         # overflow posture (flat_scan.gmin_scan): prove every |dot| and every
         # total finite via norm products, else route to the host oracle
-        tmax = _row_sq_sums(tokens.reshape(cap * t, d)).max()
-        bound_ok = (tmax.sqrt() * qsq.max().sqrt() * qmax) < 3.0e37
+        bound_ok = (tsq.max().sqrt() * qsq.max().sqrt() * qmax) < 3.0e37
     dbias = torch.where(valid, 0.0, float("inf")).float()
     rank = maxsim_rank_scan(tokens, token_counts, dbias, qf.reshape(b * qmax, d),
-                            qinv.reshape(-1), b=b, metric=metric)
+                            qinv.reshape(-1), b=b, metric=metric, tinv=tinv)
 
     # group-cover selection (flat_scan discipline): C candidates for the
     # full-f32 rerank, then the exact top-limit comes from re-scored values
