@@ -12,7 +12,7 @@ Phases (each prints one line; any failure exits non-zero):
 1. device: the card, its power limit, the kernel build;
 2. kernels: K1 ``gmin_scan`` and K2 ``rescore`` against their plain versions
    at N = 1,000,448, d = 768, B = 512 (cosine and l2, f32 and bf16), with
-   median times of both, and ``torch.matmul`` on K1's operands (f32 with
+   median times of both (K2's pairs, distinct groups and sharing logged), and ``torch.matmul`` on K1's operands (f32 with
    TF32 off, and bf16: the product alone, a yardstick, not K1's function);
 2b. adaptive kernels at the same N, d, B: K5 ``stage_gmin_scan`` (dims =
    128; cosine and l2, f32 and bf16, all on the direct TMA route), K6
@@ -22,7 +22,8 @@ Phases (each prints one line; any failure exits non-zero):
    operands (the int8 product alone: a yardstick, not K6's function);
 2c. K3 ``int8_gmin_scan`` (bit-equal; its route and the ``torch._int_mm``
    yardstick as K6's) and K4 ``int8_rescore`` at the same
-   N, d, B (cosine and l2), and the MaxSim kernel ``maxsim_rank_scan`` at
+   N, d, B (cosine and l2), K2 (f32, bf16) and K4 on 512 copies of one
+   query (mass sharing: every pair of a group in one run), and the MaxSim kernel ``maxsim_rank_scan`` at
    BASELINE config 5's shape (N = 100,352 docs x 32 tokens x 128 d, 64 sets
    of 4 query tokens: bf16 and f32 blocks of full docs, and an f32 block with
    random token counts and dead docs; the token norms given as the scan
@@ -32,7 +33,7 @@ Phases (each prints one line; any failure exits non-zero):
 4. headline scale: 1M x 768 cosine f32 clustered corpus, batch 512, limit 10:
    oracle parity on 32 queries, no host-oracle route, both kernel launch
    counts grown in the f32 run and in the bf16 run, every K1 launch on the
-   direct TMA route, bf16 storage overlap@10 >= 0.95, times per batch and
+   direct TMA route and every K2 launch on the direct (bulk-copy) route, bf16 storage overlap@10 >= 0.95, times per batch and
    a ``torch.profiler`` trace of the f32 and bf16 device batches;
 4b. BASELINE configs 3 and 4 on phase 4's collection (the scan cache shares
    its block): quantized candidates=500 and funnel stages [128, 256, 384]
@@ -47,7 +48,7 @@ Phases (each prints one line; any failure exits non-zero):
    overlap@10 with the funnel oracle;
 4c. ``storage_view("int8")`` of phase 4's index: overlap@10 against exact
    f32 on 32 queries, no host route, the K3/K4 launch counts grown (K3 on
-   the direct TMA route), ms per device batch of 512 and its
+   the direct TMA route, K4 on the direct bulk-copy route), ms per device batch of 512 and its
    ``torch.profiler`` trace;
 5. snapshot: the phase-3 collection written and loaded back gives the same
    ids;
@@ -331,6 +332,54 @@ def distinct_rows(gidx):
     return int(gidx.unique().numel()) * 64
 
 
+def rescore_bytes(rows, d, elt, b, gsel, *, metric, scaled=False):
+    """Bytes a rescore must move: ``rows`` distinct selected rows of ``d``
+    elements of ``elt`` bytes with the side values its metric reads (the
+    bias; int8's scale when ``scaled``; the row norm only for l2), the
+    queries (with their norms for l2) and ``gidx``, and the ``[B, gsel,
+    64]`` f32 ranks it writes."""
+    l2 = metric in ("l2", "l2_squared")
+    return rows * (elt * d + 4 * (1 + scaled + l2)) + 4 * b * (d + l2 + gsel + gsel * 64)
+
+
+def sharing(gidx):
+    """The rescore's pairs, the distinct groups they select and the mean
+    number of pairs per distinct group, as a log fragment."""
+    pairs, groups = gidx.numel(), distinct_rows(gidx) // 64
+    return f"P {pairs}, distinct groups {groups}, sharing {pairs / groups:.2f}"
+
+
+def mass_sharing(torch, fs, select, x32, xsq, bias, q, card):
+    """K2 (f32 and bf16 rows) and K4 on 512 copies of one query, all
+    selecting its 24 best groups (each group shared by every pair of one
+    run), against their plain versions at the main size. Returns (max abs
+    errors, max relative errors) by kernel row name."""
+    qm = q[:1].expand_as(q).contiguous()
+    gmin = fs._gmin_scan_ref(x32, xsq, bias, qm[:1], metric="cosine")
+    _v, g1, _ok = select.group_topk(gmin, 16 + fs.GROUP_SLACK, check_c=16)
+    gidx = g1.int().expand(qm.shape[0], -1).contiguous()
+    errs, rel = {}, {}
+    for name in ("rescore", "rescore_bf16"):
+        x = x32 if name == "rescore" else x32.to(torch.bfloat16)
+        got = fs.rescore(x, xsq, bias, qm, gidx, metric="l2")
+        a, _rel = abs_rel_err(got, fs._rescore_ref(x, xsq, bias, qm, gidx, metric="l2"))
+        assert a <= K2_ATOL, f"K2 {name} mass sharing err {a}"
+        errs[name] = a
+        ms = cuda_ms(torch, lambda: fs.rescore(x, xsq, bias, qm, gidx, metric="l2"))
+        log(f"  K2 {name} mass sharing: err {a:.3g} (atol {K2_ATOL}), {ms:.3f} ms; "
+            f"{sharing(gidx)} {card}")
+        del x, got
+    x8, scale = fs.quantize_rows(x32)
+    got = fs.int8_rescore(x8, scale, xsq, bias, qm, gidx, metric="l2")
+    a, e = abs_rel_err(got, fs._int8_rescore_ref(x8, scale, xsq, bias, qm, gidx, metric="l2"))
+    assert e <= K4_RTOL, f"K4 mass sharing err {e}"
+    errs["int8_rescore"], rel["int8_rescore"] = a, e
+    ms = cuda_ms(torch, lambda: fs.int8_rescore(x8, scale, xsq, bias, qm, gidx, metric="l2"))
+    log(f"  K4 int8_rescore mass sharing: abs err {a:.3g}, rel err {e:.3g} (rtol {K4_RTOL}), "
+        f"{ms:.3f} ms; {sharing(gidx)} {card}")
+    return errs, rel
+
+
 def int8_kernels(torch, fs, select, x32, bias, q, card):
     """Phase 2c, int8: K3 (bit-equal) and K4 against their plain versions at
     the main path's shapes. Returns (max abs errors, max relative errors,
@@ -372,15 +421,14 @@ def int8_kernels(torch, fs, select, x32, bias, q, card):
             f"{t['k3_int_mm']:.3f} ms, routes {fs.ROUTES['int8_gmin_scan']} "
             f"| K4 int8_rescore: abs err {a4:.3g}, rel err {e4:.3g} "
             f"(rtol {K4_RTOL}), "
-            f"{t['k4']:.3f} ms vs plain {t['k4_plain']:.3f} ms {card}")
+            f"{t['k4']:.3f} ms vs plain {t['k4_plain']:.3f} ms; {sharing(gidx)} {card}")
         if metric == "cosine":
             gsel = gidx.shape[1]
             t["k3_bound"] = bound(2 * n * d * b, "int8",
                                   n * d + 3 * 4 * n + b * d + 8 * b + 4 * b * (n // 64))
-            # distinct rows: d int8 values and three f32 side values each
             t["k4_bound"] = bound(2 * b * gsel * 64 * d, "f32",
-                                  distinct_rows(gidx) * (d + 12)
-                                  + 4 * b * (d + 1 + gsel + gsel * 64))
+                                  rescore_bytes(distinct_rows(gidx), d, 1, b, gsel,
+                                                metric=metric, scaled=True))
             out = t
     return errs, rel, out
 
@@ -472,6 +520,8 @@ def int8_view(torch, col, queries, exact, card):
     assert launches["int8_gmin_scan"] > 0 and launches["int8_rescore"] > 0, launches
     routes = dict(fs.ROUTES["int8_gmin_scan"])
     assert routes == {"direct": launches["int8_gmin_scan"], "padded": 0}, routes
+    k4_routes = dict(fs.ROUTES["int8_rescore"])
+    assert k4_routes == {"direct": launches["int8_rescore"], "narrow": 0}, k4_routes
     assert view.host_routes == 0, f"host routes: {view.host_routes}"
     hits = [len({h[0] for h in a} & {r.id for r in w}) / 10 for a, w in zip(got, exact)]
     overlap = float(np.mean(hits[:32]))
@@ -480,7 +530,8 @@ def int8_view(torch, col, queries, exact, card):
     ms_dev = host_ms(torch, lambda: view.search_batch_device(qdev, 10))
     log(f"  int8 view: quantized on the card in {quant_s:.1f}s; overlap@10 against exact f32 "
         f"on 32 queries {overlap:.4f} (all {len(queries)}: {np.mean(hits):.4f}); "
-        f"search_batch_device B={len(queries)} {ms_dev:.3f} ms; K3 routes {routes} {card}")
+        f"search_batch_device B={len(queries)} {ms_dev:.3f} ms; K3 routes {routes}, K4 routes "
+        f"{k4_routes} {card}")
     profile_runs(torch, {"int8 view device": lambda: view.search_batch_device(qdev, 10)}, card)
     return launches, overlap, ms_dev
 
@@ -885,7 +936,7 @@ def main() -> int:
     bias[corpus.shape[0]:] = float("inf")  # capacity padding: dead, all-zero rows
     xsq = (x32 * x32).sum(dim=1)
     q = torch.from_numpy(queries).to(dev)
-    errs = {"gmin_scan": 0.0, "gmin_scan_bf16": 0.0, "rescore": 0.0}
+    errs = {"gmin_scan": 0.0, "gmin_scan_bf16": 0.0, "rescore": 0.0, "rescore_bf16": 0.0}
     times = {}
     for storage in ("f32", "bf16"):
         x = x32 if storage == "f32" else x32.to(torch.bfloat16)
@@ -907,9 +958,9 @@ def main() -> int:
             e2 = (out[fin2] - ref2[fin2]).abs().max().item()
             assert e2 <= K2_ATOL, f"K2 {storage} {metric} err {e2}"
             del ref, ref2, out, gmin
-            k1_name = "gmin_scan" if storage == "f32" else "gmin_scan_bf16"
-            errs[k1_name] = max(errs[k1_name], e1)
-            errs["rescore"] = max(errs["rescore"], e2)
+            sfx = "" if storage == "f32" else "_bf16"
+            errs["gmin_scan" + sfx] = max(errs["gmin_scan" + sfx], e1)
+            errs["rescore" + sfx] = max(errs["rescore" + sfx], e2)
             t = {
                 "k1": cuda_ms(torch, lambda: fs.gmin_scan(x, xsq, bias, q, metric=metric)),
                 "k1_plain": cuda_ms(torch, lambda: fs._gmin_scan_ref(x, xsq, bias, q,
@@ -922,8 +973,8 @@ def main() -> int:
             times[(storage, metric)] = t
             log(f"  K1 gmin_scan {storage} {metric}: err {e1:.3g} (atol {K1_ATOL[storage]}), "
                 f"{t['k1']:.3f} ms vs plain {t['k1_plain']:.3f} ms | K2 rescore: err "
-                f"{e2:.3g} (atol {K2_ATOL}), {t['k2']:.3f} ms vs plain {t['k2_plain']:.3f} ms "
-                f"{card}")
+                f"{e2:.3g} (atol {K2_ATOL}), {t['k2']:.3f} ms vs plain {t['k2_plain']:.3f} ms; "
+                f"{sharing(gidx)} {card}")
         # the product alone on K1's operands, in the precision K1 keeps: a
         # yardstick of the matmul only (K1 also ranks and reduces, and never
         # writes the [B, N] matrix), so it is logged and not library_ms
@@ -951,13 +1002,18 @@ def main() -> int:
     t0 = time.perf_counter()
     int8_errs, rel_errs, int8_times = int8_kernels(torch, fs, select, x32, bias, q, card)
     errs.update(int8_errs)
+    mass_errs, mass_rel = mass_sharing(torch, fs, select, x32, xsq, bias, q, card)
+    for name, a in mass_errs.items():
+        errs[name] = max(errs[name], a)
+    rel_errs["int8_rescore"] = max(rel_errs["int8_rescore"], mass_rel["int8_rescore"])
     del x32, xsq, bias, q
     torch.cuda.empty_cache()
     mv_errs, mv_rel, mv_times = maxsim_kernels(torch, ms, card)
     errs.update(mv_errs)
     rel_errs.update(mv_rel)
     torch.cuda.synchronize()
-    log(f"[phase 2c] K3 bit-equal and K4 match at N={N_MAIN} d={D_MAIN} B={B_MAIN}; the "
+    log(f"[phase 2c] K3 bit-equal and K4 match at N={N_MAIN} d={D_MAIN} B={B_MAIN} (K2 and K4 "
+        f"also on 512 copies of one query); the "
         f"MaxSim kernel matches at config 5's shape ({time.perf_counter() - t0:.1f}s)")
 
     # ---- phase 3: BASELINE config 1 (100k x 384 cosine f32, limit 10) ----
@@ -1007,6 +1063,7 @@ def main() -> int:
     assert launches["gmin_scan"] > 0 and launches["rescore"] > 0, (
         f"kernels not launched: {launches}")
     assert fs.ROUTES["gmin_scan"] == {"direct": launches["gmin_scan"], "padded": 0}, fs.ROUTES
+    assert fs.ROUTES["rescore"] == {"direct": launches["rescore"], "narrow": 0}, fs.ROUTES
     stored = normalize_rows(corpus, "l2")  # the bytes the collection stores
     truth = f64_oracle(stored, ids, queries[:32], 10)
     swaps = sum(check_hits([(r.id, r.score) for r in row], want, 10)
@@ -1019,6 +1076,7 @@ def main() -> int:
     launches16 = dict(fs.LAUNCHES)
     assert launches16["gmin_scan"] > 0 and launches16["rescore"] > 0, launches16
     assert fs.ROUTES["gmin_scan"] == {"direct": launches16["gmin_scan"], "padded": 0}, fs.ROUTES
+    assert fs.ROUTES["rescore"] == {"direct": launches16["rescore"], "narrow": 0}, fs.ROUTES
     overlap = float(np.mean([len({h[0] for h in a} & {r.id for r in b}) / 10
                              for a, b in zip(got16, got)]))
     assert overlap >= 0.95, f"bf16 overlap@10 {overlap}"
@@ -1035,8 +1093,8 @@ def main() -> int:
                          "flat bf16 device": lambda: view.search_batch_device(qdev, 10)}, card)
     log(f"[phase 4] {N_CORPUS}x{D_MAIN} cosine f32: ids equal the f64 oracle on 32 queries ({swaps} "
         f"near-tie swaps), host routes f32 0 / bf16 {view.host_routes}, bf16 overlap@10 "
-        f"{overlap:.4f}, launches f32 {launches}, bf16 {launches16}, K1 all on the direct "
-        f"route ({time.perf_counter() - t0:.1f}s)")
+        f"{overlap:.4f}, launches f32 {launches}, bf16 {launches16}, K1 and K2 all on the "
+        f"direct route ({time.perf_counter() - t0:.1f}s)")
     del view
     torch.cuda.empty_cache()
 
@@ -1094,10 +1152,15 @@ def main() -> int:
         ("gmin_scan_bf16", "flat_scan.cu", "flat_scan.py:134", launches16, bf16_t["k1"],
          bf16_t["k1_plain"], None,
          bound(2 * n * d * b, "bf16", 2 * n * d + 4 * 2 * n + 2 * b * d + 4 * b + 4 * b * g)),
+        # K2 and K4 read the distinct selected rows once (rescore_bytes)
         ("rescore", "flat_scan.cu", "flat_scan.py:208", launches, main_t["k2"],
          main_t["k2_plain"], None,
          bound(2 * b * gsel * 64 * d, "f32",
-               main_t["k2_rows"] * (4 * d + 8) + 4 * b * (d + 1 + gsel + gsel * 64))),
+               rescore_bytes(main_t["k2_rows"], d, 4, b, gsel, metric="cosine"))),
+        ("rescore_bf16", "flat_scan.cu", "flat_scan.py:208", launches16, bf16_t["k2"],
+         bf16_t["k2_plain"], None,
+         bound(2 * b * gsel * 64 * d, "f32",
+               rescore_bytes(bf16_t["k2_rows"], d, 2, b, gsel, metric="cosine"))),
         ("int8_gmin_scan", "int8_scan.cu", "flat_scan.py:579", int8_launches, int8_times["k3"],
          int8_times["k3_plain"], None, int8_times["k3_bound"]),
         ("int8_rescore", "int8_scan.cu", "flat_scan.py:634", int8_launches, int8_times["k4"],

@@ -21,7 +21,7 @@ def test_every_kernel_source_is_built():
     names = [p.name for p in _build.sources()]
     assert names == sorted(names)
     assert {"flat_scan.cu", "adaptive_scan.cu", "int8_scan.cu", "maxsim.cu"} <= set(names)
-    assert [p.name for p in _build.headers()] == ["wgmma_scan.cuh"]
+    assert [p.name for p in _build.headers()] == ["group_rescore.cuh", "wgmma_scan.cuh"]
 
 
 def test_key_is_stable_for_the_same_sources(csrc):
@@ -30,7 +30,7 @@ def test_key_is_stable_for_the_same_sources(csrc):
 
 
 @pytest.mark.parametrize("source", ["flat_scan.cu", "adaptive_scan.cu", "int8_scan.cu",
-                                    "maxsim.cu", "wgmma_scan.cuh"])
+                                    "maxsim.cu", "group_rescore.cuh", "wgmma_scan.cuh"])
 def test_key_changes_when_any_source_changes(csrc, source):
     before = _build.build_dir(csrc)
     path = csrc / source

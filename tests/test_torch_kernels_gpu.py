@@ -8,7 +8,8 @@ marker). Run them on the card with::
 Shapes are small but ragged on purpose: query counts that are not
 multiples of the kernels' query tiles and widths that are not multiples of
 their d-chunks. Tolerances as in ``chip_smoke.py``: group minima f32 atol
-1e-5, bf16 atol 1e-4; rescored ranks atol 1e-5.
+1e-5, bf16 atol 1e-4; rescored ranks atol 1e-5 (K4: 1e-5 * max(1,
+|rank|)).
 """
 
 import numpy as np
@@ -70,19 +71,95 @@ def test_gmin_scan_kernel_matches_plain(cuda, metric, storage, shape):
                            GMIN_ATOL[storage])
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+#: the rescores' selections: a top-k of the group minima, heavy overlap
+#: (each query's groups out of a pool twice gsel wide), and mass sharing
+#: (every query the same, with the same groups); B = 1, 16, 70, 130 and 257,
+#: rows of 96 (the direct route) and of 33 and 99 (narrow)
+RESCORE_CASES = ("topk", "overlap", "identical")
+RESCORE_SHAPES = SHAPES + ((4096, 96, 1), (2048, 33, 16), (2048, 99, 257), (4096, 96, 257))
+
+
+def _rescore_selection(case, gmin, gsel, seed=0):
+    """``gidx`` [B, gsel] int32 on gmin's device for one RESCORE_CASES case."""
+    b, ng = gmin.shape
+    if case == "topk":
+        return select.group_topk(gmin, gsel, check_c=4)[1].int()
+    rng = np.random.default_rng(seed)
+    if case == "identical":
+        gidx = np.tile(rng.choice(ng, gsel, replace=False), (b, 1))
+    else:
+        pool = rng.choice(ng, min(ng, 2 * gsel), replace=False)
+        gidx = np.stack([rng.choice(pool, gsel, replace=False) for _ in range(b)])
+    return torch.from_numpy(gidx.astype(np.int32)).to(gmin.device)
+
+
+def _route_of(rows, q):
+    aligned = rows.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+    return "direct" if aligned and rows.shape[1] * rows.element_size() % 16 == 0 else "narrow"
+
+
+@pytest.mark.parametrize("case", RESCORE_CASES)
+@pytest.mark.parametrize("shape", RESCORE_SHAPES)
 @pytest.mark.parametrize("storage", STORAGES)
 @pytest.mark.parametrize("metric", fs.FUSED_METRICS)
-def test_rescore_kernel_matches_plain(cuda, metric, storage, shape):
+def test_rescore_kernel_matches_plain(cuda, metric, storage, shape, case):
     x, xsq, bias, q = _operands(*shape, storage, cuda, seed=1)
-    _v, gidx, _ok = select.group_topk(fs._gmin_scan_ref(x, xsq, bias, q, metric=metric),
-                                      12, check_c=4)
-    gidx = gidx.int()
+    if case == "identical":
+        q = q[:1].expand_as(q).contiguous()
+    gidx = _rescore_selection(case, fs._gmin_scan_ref(x, xsq, bias, q, metric=metric), 12)
     before = fs.LAUNCHES["rescore"]
+    routes = dict(fs.ROUTES["rescore"])
     out = fs.rescore(x, xsq, bias, q, gidx, metric=metric)
     torch.cuda.synchronize()
     assert fs.LAUNCHES["rescore"] == before + 1
+    route = _route_of(x, q)
+    assert fs.ROUTES["rescore"][route] == routes[route] + 1
     _assert_close_with_inf(out, fs._rescore_ref(x, xsq, bias, q, gidx, metric=metric), 1e-5)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("extra", [0, 1])
+def test_rescore_kernels_chunk_rows_wider_than_a_stage(cuda, storage, extra):
+    # a row past the 32 KB ring stage is staged one row at a time in column
+    # chunks, its partial sums carried over them; extra = 1 takes the
+    # narrow route
+    elt = {"f32": 4, "bf16": 2, "int8": 1}[storage]
+    d = fs.RESCORE_STAGE_BYTES // elt + 16 + extra
+    x, xsq, bias, q = _operands(256, d, 5, "f32", cuda, seed=4)
+    gidx = _rescore_selection("overlap", torch.zeros((5, 4), device=cuda), 3)
+    if storage == "int8":
+        x8, scale = fs.quantize_rows(x)
+        out = fs.int8_rescore(x8, scale, xsq, bias, q, gidx, metric="l2")
+        _assert_rel_close(out, fs._int8_rescore_ref(x8, scale, xsq, bias, q, gidx, metric="l2"),
+                          1e-5)
+        return
+    if storage == "bf16":
+        x = x.to(torch.bfloat16)
+        xsq = (x.float() ** 2).sum(dim=1)
+    out = fs.rescore(x, xsq, bias, q, gidx, metric="l2")
+    _assert_close_with_inf(out, fs._rescore_ref(x, xsq, bias, q, gidx, metric="l2"), 1e-5)
+
+
+def test_rescores_do_not_synchronize(cuda):
+    # the work list is built on the card: no count is read back to the host
+    # (64 x 12 pairs: sorted for K2's f32 rows on an H100; K4's int8 rows
+    # and one query: in their own order)
+    x, xsq, bias, q = _operands(4096, 96, 64, "f32", cuda, seed=5)
+    x8, scale = fs.quantize_rows(x)
+    gidx = _rescore_selection("overlap", torch.zeros((64, 64), device=cuda), 12)
+    calls = [lambda g: fs.rescore(x, xsq, bias, q[:g.shape[0]], g, metric="cosine"),
+             lambda g: fs.int8_rescore(x8, scale, xsq, bias, q[:g.shape[0]], g, metric="l2")]
+    for call in calls:  # builds the library
+        call(gidx)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call(gidx)
+            call(gidx[:1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("storage", STORAGES)
@@ -379,17 +456,26 @@ def test_int8_gmin_scan_kernel_is_bit_equal(cuda, metric, shape):
                                                     metric=metric))
 
 
-@pytest.mark.parametrize("shape", INT8_SHAPES)
+@pytest.mark.parametrize("case", ("random",) + RESCORE_CASES[1:])
+@pytest.mark.parametrize("shape", INT8_SHAPES + RESCORE_SHAPES[2:])
 @pytest.mark.parametrize("metric", fs.FUSED_METRICS)
-def test_int8_rescore_kernel_matches_plain(cuda, metric, shape):
+def test_int8_rescore_kernel_matches_plain(cuda, metric, shape, case):
     x8, scale, xsq, bias, q, *_ = _int8_operands(*shape, cuda, seed=1)
     ng = shape[0] // fs.GROUP
-    gidx = torch.randint(0, ng, (shape[2], min(12, ng)), dtype=torch.int32, device=cuda)
+    if case == "random":
+        gidx = torch.randint(0, ng, (shape[2], min(12, ng)), dtype=torch.int32, device=cuda)
+    else:
+        if case == "identical":
+            q = q[:1].expand_as(q).contiguous()
+        gidx = _rescore_selection(case, torch.zeros((shape[2], ng), device=cuda), min(12, ng))
     gidx[0, 0] = ng + 3  # out of range: clamped by both versions
     before = fs.LAUNCHES["int8_rescore"]
+    routes = dict(fs.ROUTES["int8_rescore"])
     out = fs.int8_rescore(x8, scale, xsq, bias, q, gidx, metric=metric)
     torch.cuda.synchronize()
     assert fs.LAUNCHES["int8_rescore"] == before + 1
+    route = _route_of(x8, q)
+    assert fs.ROUTES["int8_rescore"][route] == routes[route] + 1
     want = fs._int8_rescore_ref(x8, scale, xsq, bias, q, gidx.clamp(0, ng - 1), metric=metric)
     _assert_rel_close(out, want, 1e-5)
 

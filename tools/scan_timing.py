@@ -2,7 +2,18 @@
 epilogues or their products cut out: K1 ``gmin_scan`` (f32 and bf16
 blocks, cosine and l2), K3 ``int8_gmin_scan`` (cosine), K5
 ``stage_gmin_scan`` (f32 and bf16 blocks, cosine, dims = 128), K6
-``fused_sign_scan`` and the MaxSim ``maxsim_rank_scan`` (cosine).
+``fused_sign_scan`` and the MaxSim ``maxsim_rank_scan`` (cosine); and the
+two rescores, K2 ``rescore`` (f32 and bf16 blocks) and K4
+``int8_rescore`` (cosine), on the groups that ``select.group_topk`` picks
+from K1's group minima at gsel = 18 (the flat search's at limit 10), whole
+only: the ablation and ``--phases`` builds cut the scan skeleton, which
+the rescores do not run. Beside each rescore's time around its wrapper,
+``torch.profiler`` gives its kernel's device time (``_kernel``) and all
+the device time of one call (``_device``: with the sort and the query
+norms); the rest of the wrapper's time is host work. Where the package's
+plan may sort the pairs by group (B = 512), ``_sorted`` and ``_unsorted``
+time the same call with the sort forced on and off: what reading a
+shared group once saves.
 
 All of them run the TMA / ``wgmma`` scan skeleton of
 ``vettore_tpu_torch/csrc/wgmma_scan.cuh``. At N = 1,000,448 rows, d = 768
@@ -33,11 +44,13 @@ one call of each kernel in a copy of the package whose consumer
 warpgroups count ``clock64()`` cycles (thread 0 of each, summed over
 tiles with atomics), and prints per tile and warpgroup the cycles spent
 waiting for ring stages, on the products, and in the epilogue. ``--kernels`` picks
-the kernels (``k1``, ``k3``, ``k5``, ``k6``, ``maxsim``; all by default).
+the kernels (``k1``, ``k2``, ``k3``, ``k4``, ``k5``, ``k6``, ``maxsim``;
+all by default).
 The last line is a JSON summary. Run from the repository root on a machine
 with a CUDA card:
 
     python3 tools/scan_timing.py [--parent DIR [--pairs P]] [--kernels k5,maxsim]
+    python3 tools/scan_timing.py --parent DIR --pairs 5 --kernels k2,k4
 """
 
 from __future__ import annotations
@@ -53,7 +66,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 N, D, BATCHES = 1_000_448, 768, (512, 16, 1)
-KERNELS = ("k1", "k3", "k5", "k6", "maxsim")
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "maxsim")
+#: the rescores: whole builds only (no scan skeleton to cut)
+RESCORES = {"k2", "k4"}
+#: groups per query the rescores take: limit 10 + GROUP_SLACK
+GSEL = 18
 #: K5's prefix; the MaxSim shape: docs, tokens per doc, d, sets, tokens per set
 DIMS = 128
 MV_N, MV_T, MV_D, MV_B, MV_Q = 100_352, 32, 128, 64, 4
@@ -102,6 +119,7 @@ def measure(reps: int, kernels: set, phases: bool) -> dict:
     from vettore_tpu_torch import _build
     from vettore_tpu_torch.ops import flat_scan as fs
     from vettore_tpu_torch.ops import maxsim as ms
+    from vettore_tpu_torch.ops import select
 
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -132,6 +150,23 @@ def measure(reps: int, kernels: set, phases: bool) -> dict:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         return float(np.median(times))
+
+    def device_ms(fn, reps=10):
+        """Device ms per call of ``fn`` (``torch.profiler``): the rescore
+        kernel's own, and every kernel's (the rest is the sort, the query
+        norms and the like); the wrapper's time beside them is host work."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+        kernel = sum(e.self_device_time_total for e in events if "rescore" in e.key.lower())
+        return kernel / 1e3 / reps, sum(e.self_device_time_total for e in events) / 1e3 / reps
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -170,6 +205,31 @@ def measure(reps: int, kernels: set, phases: bool) -> dict:
                 t[f"k5_{storage}"] = cuda_ms(
                     lambda: fs.stage_gmin_scan(xs, x5sq, bias, q, metric="cosine", dims=DIMS),
                     "adaptive_scan")
+        if kernels & RESCORES:
+            gmin, _bounded = fs.gmin_scan(x, xsq, bias, q, metric="cosine")
+            gidx = select.group_topk(gmin, GSEL, check_c=GSEL - fs.GROUP_SLACK)[1].int()
+            del gmin
+            pairs, groups = gidx.numel(), int(gidx.unique().numel())
+            print(f"K2/K4 at B={b}: P {pairs}, distinct groups {groups}, sharing "
+                  f"{pairs / groups:.2f}", flush=True)
+            calls = {}
+            if "k2" in kernels:
+                for storage, xs, xss in (("f32", x, xsq), ("bf16", xb, xbsq)):
+                    calls[f"k2_{storage}"] = (lambda xs=xs, xss=xss: fs.rescore(
+                        xs, xss, bias, q, gidx, metric="cosine"))
+            if "k4" in kernels:
+                calls["k4"] = lambda: fs.int8_rescore(x8, scale, xsq, bias, q, gidx,
+                                                      metric="cosine")
+            # a package with a group-major plan, at a pair count where it may sort
+            if hasattr(fs, "_rescore_plan") and not phases \
+                    and gidx.numel() > 4 * fs._sm_count(dev.index):
+                for name, fn in list(calls.items()):
+                    calls[f"{name}_sorted"] = forced(fn, fs, True)
+                    calls[f"{name}_unsorted"] = forced(fn, fs, False)
+            for name, fn in calls.items():
+                t[name] = cuda_ms(fn, None)
+                if not phases:
+                    t[f"{name}_kernel"], t[f"{name}_device"] = device_ms(fn)
         out[b] = t
     if "maxsim" in kernels:
         qt = torch.randn((MV_B * MV_Q, MV_D), generator=gen, device=dev)
@@ -189,6 +249,28 @@ def measure(reps: int, kernels: set, phases: bool) -> dict:
             del tokens, extra
         out[f"{MV_B}x{MV_Q}"] = t
     return out
+
+
+def forced(fn, fs, sort):
+    """``fn`` with the rescore plan's sort forced on (``sort``: a shared
+    group is staged once per window) or off (the kernel walks the pairs in
+    their own order, and stages a group once per run of equal groups that
+    this order happens to give)."""
+    import torch
+
+    def plan(gidx, n, *, d, elt, sms):
+        groups, pairs = (torch.sort(gidx.reshape(-1), stable=True) if sort
+                         else (gidx.reshape(-1), None))
+        return groups, pairs, fs._rescore_geometry(gidx.numel(), d, elt, sms)
+
+    def run():
+        sorted_plan, fs._rescore_plan = fs._rescore_plan, plan
+        try:
+            return fn()
+        finally:
+            fs._rescore_plan = sorted_plan
+
+    return run
 
 
 def ablated_copy(name: str) -> Path:
@@ -249,6 +331,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    cut = ",".join(k for k in KERNELS if k in kernels - RESCORES)  # the ablated builds' kernels
+    if not args.pairs and not cut:
+        ap.error("k2 and k4 are timed whole only: give --parent DIR --pairs P, or a scan too")
     if args.phases:
         paths, order = {"phases": ablated_copy("phases")}, ["phases"]
     elif args.pairs:
@@ -264,13 +349,18 @@ def main() -> int:
     runs = []
     for variant in order:
         env = dict(os.environ, PYTHONPATH=str(paths[variant]))
+        whole = variant in ("full", "parent")
         child = subprocess.run([sys.executable, __file__, "--measure", "--reps", str(args.reps),
-                                "--kernels", args.kernels, *(["--phases"] if args.phases else [])],
+                                "--kernels", args.kernels if whole else cut,
+                                *(["--phases"] if args.phases else [])],
                                capture_output=True, text=True, env=env, check=False)
         if child.returncode:
             print(child.stderr, file=sys.stderr)
             raise RuntimeError(f"the {variant} run failed (exit {child.returncode})")
-        res = json.loads(child.stdout.strip().splitlines()[-1])
+        *notes, last = child.stdout.strip().splitlines()
+        if notes and variant not in [r["variant"] for r in runs]:  # once per build
+            print("\n".join(notes), flush=True)
+        res = json.loads(last)
         runs.append({"variant": variant, "ms": res})
         for b, t in res.items():
             if args.phases:

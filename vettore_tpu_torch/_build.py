@@ -29,8 +29,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libvettore_kernels.so"
 
+#: the kernels' compile-time limits, given to nvcc as macros; the wrappers
+#: plan their launches within them (the group-major rescore of
+#: ``csrc/group_rescore.cuh``: pairs per work item, bytes of one shared-
+#: memory ring stage)
+LIMITS = {"VT_RESCORE_MAX_WINDOW": 64, "VT_RESCORE_STAGE_BYTES": 32768}
+
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                 *(f"-D{name}={value}" for name, value in LIMITS.items()))
 
 _lock = threading.Lock()
 _lib = None
@@ -107,9 +114,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     signatures = {
         "vt_gmin_scan": [p, i, i, p, p, p, p, i, p, p, i, i, i, i, p],
-        "vt_rescore": [p, i, p, p, p, p, p, p, i, i, i, i, i, p],
+        "vt_rescore": [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p],
         "vt_int8_gmin_scan": [p, i, p, p, p, p, i, p, p, p, i, i, i, i, p],
-        "vt_int8_rescore": [p, p, p, p, p, p, p, p, i, i, i, i, i, p],
+        "vt_int8_rescore": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p],
         "vt_maxsim_rank_scan": [p, i, i, p, p, p, p, p, i, p, p, i, i, i, i, i, i, i, p],
         "vt_stage_gmin_scan": [p, i, i, p, p, p, p, i, p, p, p, i, i, i, i, p],
         "vt_sign_scan": [p, i, p, p, i, p, p, i, i, i, p],

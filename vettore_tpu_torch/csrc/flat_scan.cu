@@ -20,16 +20,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "group_rescore.cuh"
 #include "wgmma_scan.cuh"
 
 namespace {
 
 constexpr int GROUP = 64;  // rows per selection group
-
-__device__ __forceinline__ float load_x(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 // ---------------------------------------------------------------------------
 // K1 gmin_scan: gmin[b, g] = min over the 64 rows r of group g of
@@ -118,55 +114,24 @@ struct FlatEpilogue {
 
 // ---------------------------------------------------------------------------
 // K2 rescore: out[b, s, r] = rank(x[gidx[b, s]*64 + r] . q[b]) + bias,
-// non-finite values mapped to +inf.
+// non-finite values mapped to +inf, for f32 and bf16 rows.
 //
 // Replaces the Pallas kernel vettore_tpu/ops/flat_scan.py::_rescore (body
-// _rescore_body). A block reads its own group index from gidx; there is no
-// scalar prefetch on a GPU.
+// _rescore_body). The dot sums in f32 against the f32 query, also under bf16
+// storage, as _rescore_body does.
 //
-// Bound: bytes. Each (query, group) pair streams 64 rows of x (192 KB at
-// d = 768 f32) for 2 FLOP per element; at B = 512 and gsel = 24 that is
-// 2.4 GB of row reads, part of it served from L2 when queries share groups.
+// Bound: bytes: the rows of every distinct selected group and the side
+// values the metric reads (the bias; the row norm for l2), read once
+// (0.502 ms for f32 rows under cosine at B = 512, gsel 24, d = 768 on the
+// main path's selection), against 1.2 GFLOP of products.
 //
-// Design: one block per (selected group, query), 8 warps of 8 rows each. The
-// 32 lanes of a warp stride over d, so every row read is coalesced; the dot
-// accumulates in f32 against the f32 query (also under bf16 storage, as in
-// _rescore_body) and finishes with a warp shuffle reduction.
-//
-// Left for later: one block per group serving every query that selected it
-// (x read once per group instead of once per pair), and 16-byte vector loads.
+// Design: the group-major rescore of csrc/group_rescore.cuh (for f32 rows
+// a stable sort of the pairs by group on the card; windows of listed pairs
+// times slices of the group's rows, each run of equal groups staged into
+// shared memory once by 1-D bulk copies and served to every pair of the run
+// with 16-byte loads). K2 is its f32 and bf16 instances with a fused
+// multiply-add.
 // ---------------------------------------------------------------------------
-
-constexpr int K2_THREADS = 256;
-constexpr int K2_ROWS_PER_WARP = GROUP / (K2_THREADS / 32);
-
-template <typename T>
-__global__ void __launch_bounds__(K2_THREADS)
-rescore_kernel(const T* __restrict__ x, const float* __restrict__ xsq,
-               const float* __restrict__ bias, const float* __restrict__ q,
-               const float* __restrict__ qsq, const int* __restrict__ gidx,
-               float* __restrict__ out, int ng, int d, int gsel, int l2) {
-  const int s = blockIdx.x;
-  const int bq = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int gi = gidx[(int64_t)bq * gsel + s];
-  gi = gi < 0 ? 0 : (gi >= ng ? ng - 1 : gi);  // never read out of bounds
-  const int64_t row0 = (int64_t)gi * GROUP;
-  const float* qv = q + (int64_t)bq * d;
-  for (int rr = 0; rr < K2_ROWS_PER_WARP; ++rr) {
-    const int r = warp * K2_ROWS_PER_WARP + rr;
-    const T* xr = x + (row0 + r) * d;
-    float acc = 0.f;
-    for (int k = lane; k < d; k += 32) acc = fmaf(load_x(xr + k), __ldg(qv + k), acc);
-#pragma unroll
-    for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      float rank = l2 ? xsq[row0 + r] - 2.f * acc + qsq[bq] : -acc;
-      rank += bias[row0 + r];
-      out[((int64_t)bq * gsel + s) * GROUP + r] = isfinite(rank) ? rank : INFINITY;
-    }
-  }
-}
 
 }  // namespace
 
@@ -188,23 +153,23 @@ int vt_gmin_scan(const void* x, int ldx, int x_bf16, const float* xsq, const flo
   return (int)wg::scan<wg::Tf32x3>(x, ldx, q, q_lo, ldq, n, d, b, epi, st);
 }
 
-// gidx: [b, gsel] int32 group indices; q: [b, d] f32 (never rounded);
-// out: [b, gsel, 64] f32 output.
+// groups: [p] int32 group indices of the pairs in the order the kernel
+// walks them (ordered by group); pairs: [p] int64 pair index (b * gsel + s)
+// of each, or null for the identity; q: [b, d] f32 (never rounded); out:
+// [b, gsel, 64] f32 output. w, rows, rs, cols: the work geometry
+// (ops/flat_scan.py::_rescore_plan); direct: the bulk-copy route.
 int vt_rescore(const void* x, int x_bf16, const float* xsq, const float* bias,
-               const float* q, const float* qsq, const int* gidx, float* out,
-               int n, int d, int b, int gsel, int l2, void* stream) {
-  if (n <= 0 || n % GROUP || d <= 0 || b <= 0 || b > 65535 || gsel <= 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(gsel, b);
+               const float* q, const float* qsq, const int* groups, const int64_t* pairs,
+               float* out, int n, int d, int p, int gsel, int w, int rows, int rs, int cols,
+               int direct, int l2, void* stream) {
+  const gr::Geometry geo{p, gsel, n / GROUP, d, w, rows, rs, cols, l2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    rescore_kernel<__nv_bfloat16><<<grid, K2_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), xsq, bias, q, qsq, gidx, out, n / GROUP, d,
-        gsel, l2);
-  else
-    rescore_kernel<float><<<grid, K2_THREADS, 0, st>>>(
-        static_cast<const float*>(x), xsq, bias, q, qsq, gidx, out, n / GROUP, d, gsel, l2);
-  return (int)cudaGetLastError();
+    return (int)gr::launch<__nv_bfloat16, false>(static_cast<const __nv_bfloat16*>(x), nullptr,
+                                                 xsq, bias, q, qsq, groups, pairs, out, n, geo,
+                                                 direct, st);
+  return (int)gr::launch<float, false>(static_cast<const float*>(x), nullptr, xsq, bias, q, qsq,
+                                       groups, pairs, out, n, geo, direct, st);
 }
 
 const char* vt_error_string(int code) {

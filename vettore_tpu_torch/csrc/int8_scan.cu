@@ -16,12 +16,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "group_rescore.cuh"
 #include "wgmma_scan.cuh"
 
 namespace {
 
 constexpr int GROUP = 64;      // rows per selection group
-constexpr int THREADS = 256;   // K4: 8 warps
 
 // ---------------------------------------------------------------------------
 // K3 int8_gmin_scan: for int8 rows x8[r] (dequant scale[r]) and int8
@@ -126,53 +126,21 @@ struct Int8Epilogue {
 // Replaces the Pallas kernel vettore_tpu/ops/flat_scan.py::_int8_rescore
 // (body _int8_rescore_body). Like the JAX body it sums the products first
 // and multiplies by the row scale after; each product is rounded before the
-// add (__fmul_rn, __fadd_rn), as the body's elementwise product then sum.
-// A block reads and clamps its own group index (no scalar prefetch on a
-// GPU).
+// add (__fmul_rn, __fadd_rn, never contracted), as the body's elementwise
+// product then sum.
 //
-// Bound: bytes. At B = 512 and gsel = 24 it gathers 512 x 24 x 64 rows of
-// 768 int8 (604 MB, part of it served from L2 when queries share groups):
-// 0.18 ms at 3.35 TB/s.
+// Bound: bytes: the int8 rows of every distinct selected group with the
+// f32 side values the metric reads (the scale and the bias; the row norm
+// for l2), read once (about 0.13 ms under cosine at B = 512, gsel 24,
+// d = 768 on the main path's selection).
 //
-// Design: K2's (csrc/flat_scan.cu). One block per (selected group, query),
-// 8 warps of 8 rows each; the 32 lanes of a warp stride over d, so each row
-// read is coalesced, and a warp shuffle finishes the dot.
-//
-// Left for later: one block per group serving every query that selected it
-// (each row read once), and 16-byte loads of 16 int8 at a time.
+// Design: the group-major rescore of csrc/group_rescore.cuh, its int8
+// instance, on the pairs in their own order (sorting them by group saves
+// int8 rows nothing: the kernel is bound by its per (pair, row) work): each
+// run of equal groups staged into shared memory once by 1-D bulk copies,
+// every pair of the run served from there, 16 int8 values a lane per
+// 16-byte load.
 // ---------------------------------------------------------------------------
-
-constexpr int K4_ROWS_PER_WARP = GROUP / (THREADS / 32);
-
-__global__ void __launch_bounds__(THREADS)
-int8_rescore_kernel(const int8_t* __restrict__ x8, const float* __restrict__ scale,
-                    const float* __restrict__ xsq, const float* __restrict__ bias,
-                    const float* __restrict__ q, const float* __restrict__ qsq,
-                    const int* __restrict__ gidx, float* __restrict__ out, int ng, int d,
-                    int gsel, int l2) {
-  const int s = blockIdx.x;
-  const int bq = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int gi = gidx[(int64_t)bq * gsel + s];
-  gi = gi < 0 ? 0 : (gi >= ng ? ng - 1 : gi);  // never read out of bounds
-  const int64_t row0 = (int64_t)gi * GROUP;
-  const float* qv = q + (int64_t)bq * d;
-  for (int rr = 0; rr < K4_ROWS_PER_WARP; ++rr) {
-    const int64_t r = row0 + warp * K4_ROWS_PER_WARP + rr;
-    const int8_t* xr = x8 + r * d;
-    float acc = 0.f;
-    for (int k = lane; k < d; k += 32)
-      acc = __fadd_rn(acc, __fmul_rn((float)__ldg(xr + k), __ldg(qv + k)));
-#pragma unroll
-    for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      const float dot = __fmul_rn(acc, scale[r]);
-      float rank = l2 ? __fadd_rn(__fsub_rn(xsq[r], __fmul_rn(2.f, dot)), qsq[bq]) : -dot;
-      rank = __fadd_rn(rank, bias[r]);
-      out[((int64_t)bq * gsel + s) * GROUP + (r - row0)] = isfinite(rank) ? rank : INFINITY;
-    }
-  }
-}
 
 }  // namespace
 
@@ -190,17 +158,16 @@ int vt_int8_gmin_scan(const int8_t* x8, int ldx, const float* scale, const float
                                static_cast<cudaStream_t>(stream));
 }
 
-// q: [b, d] f32 (unquantized); qsq: [b] f32; gidx: [b, gsel] int32;
-// out: [b, gsel, 64] f32 output.
+// q: [b, d] f32 (unquantized); qsq: [b] f32; groups, pairs and the
+// geometry as vt_rescore (csrc/flat_scan.cu); out: [b, gsel, 64] f32
+// output.
 int vt_int8_rescore(const int8_t* x8, const float* scale, const float* xsq,
-                    const float* bias, const float* q, const float* qsq, const int* gidx,
-                    float* out, int n, int d, int b, int gsel, int l2, void* stream) {
-  if (n <= 0 || n % GROUP || d <= 0 || b <= 0 || b > 65535 || gsel <= 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(gsel, b);
-  int8_rescore_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x8, scale, xsq, bias, q, qsq, gidx, out, n / GROUP, d, gsel, l2);
-  return (int)cudaGetLastError();
+                    const float* bias, const float* q, const float* qsq, const int* groups,
+                    const int64_t* pairs, float* out, int n, int d, int p, int gsel, int w,
+                    int rows, int rs, int cols, int direct, int l2, void* stream) {
+  const gr::Geometry geo{p, gsel, n / GROUP, d, w, rows, rs, cols, l2};
+  return (int)gr::launch<int8_t, true>(x8, scale, xsq, bias, q, qsq, groups, pairs, out, n, geo,
+                                       direct, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

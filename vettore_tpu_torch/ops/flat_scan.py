@@ -17,8 +17,11 @@ beside its plain PyTorch version in this module:
   k distinct elements, so any group whose min exceeds the k-th smallest
   group-min cannot contain a top-k element. Ties at the boundary deeper
   than the slack clear the ``ok`` flag (host-oracle fallback).
-* **K2** ``rescore`` — each (query, selected group) pair re-ranks the 64
-  contiguous rows of its group; no ``[B, N]``-sized gather.
+* **K2** ``rescore`` — re-ranks the 64 contiguous rows of every (query,
+  selected group) pair; no ``[B, N]``-sized gather. Group-major
+  (``csrc/group_rescore.cuh``): for f32 rows the pairs are sorted by group
+  on the card (``_rescore_plan``), and each selected group's rows are read
+  from device memory once per work item for every query that chose it.
 * **final selection** (plain torch): the ``k + tie pad`` best candidates by
   rank, then a small (rank, lex id) sort — the reference's (rank, id)
   tie-break, flat.rs:34-40. A rank tie straddling the pad boundary clears
@@ -48,7 +51,8 @@ The adaptive pipelines (``ops/pipeline.py``) run three more kernels
   whether their operands were read in place or first copied to a stride
   TMA can address;
 * **K4** ``int8_rescore`` — the selected groups' int8 rows against the full
-  f32 query, dequantized after the sum.
+  f32 query, dequantized after the sum: K2's group-major kernel on int8
+  rows; ``ROUTES`` counts both rescores' staging route.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors; any other device raises. Each keeps a launch
@@ -58,8 +62,11 @@ nothing).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from .. import _build
 from . import select
 from .distance import no_tf32
 from .topk import lex_sort, smallest
@@ -92,13 +99,25 @@ _SAFE_LOG = 86.0  # log(2.2e37) >= log(|dot|) bound via Cauchy-Schwarz
 LAUNCHES = {"gmin_scan": 0, "rescore": 0, "int8_gmin_scan": 0, "int8_rescore": 0,
             "stage_gmin_scan": 0, "sign_scan": 0, "extract_group_rows": 0}
 
-#: launches of the tensor-core scans by operand route: "direct" when TMA
+#: launches by operand route. The tensor-core scans: "direct" when TMA
 #: reads every operand in place, "padded" when one of them first went
-#: through ``_tma_rows``'s copy
+#: through ``_tma_rows``'s copy. The rescores (K2, K4): "direct" when the
+#: rows are staged by 16-byte bulk copies and read 16 bytes a lane,
+#: "narrow" when a row stride or base rules that out and the same kernel
+#: copies and reads one element at a time
 ROUTES = {"gmin_scan": {"direct": 0, "padded": 0},
           "int8_gmin_scan": {"direct": 0, "padded": 0},
           "stage_gmin_scan": {"direct": 0, "padded": 0},
-          "sign_scan": {"direct": 0, "padded": 0}}
+          "sign_scan": {"direct": 0, "padded": 0},
+          "rescore": {"direct": 0, "narrow": 0},
+          "int8_rescore": {"direct": 0, "narrow": 0}}
+
+#: the group-major rescore's limits: pairs per work item and bytes of one
+#: shared-memory ring stage (compiled into csrc/group_rescore.cuh from
+#: ``_build.LIMITS``), and the most row slices the plan cuts a group into
+RESCORE_MAX_WINDOW = _build.LIMITS["VT_RESCORE_MAX_WINDOW"]
+RESCORE_STAGE_BYTES = _build.LIMITS["VT_RESCORE_STAGE_BYTES"]
+RESCORE_MAX_SLICES = 16
 
 
 def supports(metric: str, cap: int, k: int) -> bool:
@@ -124,14 +143,6 @@ def _check_operands(x, xsq, bias, q):
     for t in (xsq, bias, q):
         if t.device != x.device:
             raise ValueError(f"operands on {t.device} and {x.device}")
-
-
-def _launch_args(x, xsq, bias, q, qsq):
-    for t in (x, xsq, bias, q, qsq):
-        if not t.is_contiguous():
-            raise ValueError("kernel operands must be contiguous")
-    return (x.data_ptr(), int(x.dtype == torch.bfloat16), xsq.data_ptr(), bias.data_ptr(),
-            q.data_ptr(), qsq.data_ptr())
 
 
 def _rank(dots, xsq, qsq, metric):
@@ -209,8 +220,6 @@ def gmin_scan(x, xsq, bias, q, *, metric):
         return _gmin_scan_ref(x, xsq, bias, q, metric=metric), bounded
     if not x.is_cuda:
         raise ValueError(f"gmin_scan runs on cuda or cpu tensors, not {x.device}")
-    from .. import _build
-
     if not all(t.is_contiguous() for t in (x, xsq, bias)):
         raise ValueError("kernel operands must be contiguous")
     n, d = x.shape
@@ -252,9 +261,91 @@ def _rescore_ref(x, xsq, bias, q, gidx, *, metric):
     return torch.where(torch.isfinite(rank), rank, torch.full_like(rank, float("inf")))
 
 
+def _rescore_geometry(p, d, elt, sms):
+    """The rescore kernels' work geometry for ``p`` pairs of rows of ``d``
+    elements of ``elt`` bytes on a card of ``sms`` SMs: ``(w, rows, rs,
+    cols)``. A work item is a window of ``w`` sorted pairs times a slice of
+    ``rows`` of a group's 64 rows: ``w`` grows with ``p`` (about two windows
+    per SM, at most ``RESCORE_MAX_WINDOW``), and the slices multiply the
+    windows until there are eight work items per SM or a slice is 4 rows,
+    so small batches still fill the card. A ring stage holds ``rs`` rows of
+    ``cols`` columns: the slice's rows, halved until they fit
+    ``RESCORE_STAGE_BYTES``; a row wider than a stage is cut into column
+    chunks (``rs`` = 1)."""
+    w = max(1, min(RESCORE_MAX_WINDOW, p // (2 * sms)))
+    windows = -(-p // w)
+    slices = 1
+    while slices < RESCORE_MAX_SLICES and windows * slices < 8 * sms:
+        slices *= 2
+    rows = GROUP // slices
+    rs = rows
+    while rs > 1 and rs * d * elt > RESCORE_STAGE_BYTES:
+        rs //= 2
+    cols = d if rs * d * elt <= RESCORE_STAGE_BYTES else RESCORE_STAGE_BYTES // elt
+    return w, rows, rs, cols
+
+
+def _rescore_plan(gidx, n, *, d, elt, sms):
+    """The rescore kernels' work list for ``gidx`` [B, gsel] over a block of
+    ``n`` rows of ``elt`` bytes an element: ``(groups [P] int32, pairs [P]
+    int64 or None, geometry)``. For f32 rows the ``P = B * gsel`` pairs are
+    ordered by group by a stable sort: ``groups`` in that order and
+    ``pairs`` the original pair index ``b * gsel + s`` of each, so that a
+    shared group is read once per window. ``pairs`` is None, and the pairs
+    stay in their own order, for bf16 and int8 rows, at B = 1 (a query's
+    selected groups are distinct) and whenever ``P <= 4 * sms``. Reading a
+    shared group once pays only where the row bytes set the kernel's time:
+    on an H100 at B = 512 (sharing 1.32; ``tools/scan_timing.py``'s
+    ``_unsorted`` times) the sort cut K2 f32's device time
+    per call 0.584 → 0.511 ms, but left bf16's at 0.302 → 0.295 and raised
+    int8's 0.317 → 0.352, whose kernels are bound by their per (pair, row)
+    work; at ``P <= 4 * sms`` every work item is in flight at once and the
+    sort's launches cost more than it saves. Group indices outside ``[0,
+    n/64)`` are clamped by the kernel, which clamps every index it reads; a
+    clamp is monotone, so the sort of the raw indices also orders the
+    clamped ones, and the wrapper launches nothing for it. Every size
+    follows from the shapes: nothing is read back to the host.
+    ``geometry`` is ``_rescore_geometry``'s."""
+    b, gsel = gidx.shape
+    if elt != 4 or b == 1 or b * gsel <= 4 * sms:
+        groups, pairs = gidx.reshape(-1), None
+    else:
+        groups, pairs = torch.sort(gidx.reshape(-1), stable=True)
+    return groups, pairs, _rescore_geometry(b * gsel, d, elt, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _group_rescore(name, lead, x, q, gidx, *, metric):
+    """Launches K2 or K4 (``name``; ``lead`` the entry point's leading
+    arguments: the rows and their side values) on ``gidx``'s work list, on
+    the caller's stream; counts the launch and its route."""
+    n, d = x.shape
+    b, gsel = gidx.shape
+    q = q.contiguous()
+    qsq = (q * q).sum(dim=1) if _is_l2(metric) else None  # the dot metrics need no norm
+    elt = x.element_size()
+    groups, pairs, (w, rows, rs, cols) = _rescore_plan(
+        gidx.contiguous(), n, d=d, elt=elt, sms=_sm_count(x.device.index))
+    direct = x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0 and (d * elt) % 16 == 0
+    out = torch.empty((b, gsel, GROUP), dtype=torch.float32, device=x.device)
+    entry = getattr(_build.load(), f"vt_{name}")
+    code = entry(*lead, q.data_ptr(), None if qsq is None else qsq.data_ptr(), groups.data_ptr(),
+                 None if pairs is None else pairs.data_ptr(), out.data_ptr(), n, d, b * gsel,
+                 gsel, w, rows, rs, cols, int(direct), int(_is_l2(metric)),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, name)
+    LAUNCHES[name] += 1
+    ROUTES[name]["direct" if direct else "narrow"] += 1
+    return out
+
+
 def rescore(x, xsq, bias, q, gidx, *, metric):
     """Ranks of every row of the selected groups: ``[B, gsel, 64]`` f32.
-    ``gidx`` [B, gsel] int32 group indices (values in ``[0, N/64)``)."""
+    ``gidx`` [B, gsel] int32 group indices (clamped into ``[0, N/64)``)."""
     _check_operands(x, xsq, bias, q)
     b, gsel = gidx.shape
     if b != q.shape[0]:
@@ -262,23 +353,15 @@ def rescore(x, xsq, bias, q, gidx, *, metric):
     if gidx.dtype != torch.int32 or gidx.device != x.device:
         raise TypeError("gidx must be an int32 tensor on the operands' device")
     if x.device.type == "cpu":
-        return _rescore_ref(x, xsq, bias, q, gidx, metric=metric)
+        return _rescore_ref(x, xsq, bias, q, gidx.clamp(0, x.shape[0] // GROUP - 1),
+                            metric=metric)
     if not x.is_cuda:
         raise ValueError(f"rescore runs on cuda or cpu tensors, not {x.device}")
-    from .. import _build
-
-    n, d = x.shape
-    q = q.contiguous()
-    qsq = (q * q).sum(dim=1)
-    gidx = gidx.contiguous()
-    out = torch.empty((b, gsel, GROUP), dtype=torch.float32, device=x.device)
-    lib = _build.load()
-    code = lib.vt_rescore(*_launch_args(x, xsq, bias, q, qsq), gidx.data_ptr(),
-                          out.data_ptr(), n, d, b, gsel, int(_is_l2(metric)),
-                          torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, "rescore")
-    LAUNCHES["rescore"] += 1
-    return out
+    for t in (x, xsq, bias):
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+    lead = (x.data_ptr(), int(x.dtype == torch.bfloat16), xsq.data_ptr(), bias.data_ptr())
+    return _group_rescore("rescore", lead, x, q, gidx, metric=metric)
 
 
 # ---------------------------------------------------------------------------
@@ -479,8 +562,6 @@ def int8_gmin_scan(x8, scale, xsq, bias, q8, qscale, qsq, *, metric):
                                    metric=metric), bounded
     if not x8.is_cuda:
         raise ValueError(f"int8_gmin_scan runs on cuda or cpu tensors, not {x8.device}")
-    from .. import _build
-
     if not all(t.is_contiguous() for t in (x8, scale, xsq, bias, q8, qscale, qsq)):
         raise ValueError("kernel operands must be contiguous")
     n = x8.shape[0]
@@ -512,7 +593,7 @@ def _int8_rescore_ref(x8, scale, xsq, bias, q, gidx, *, metric):
 def int8_rescore(x8, scale, xsq, bias, q, gidx, *, metric):
     """Ranks of every row of the selected groups of an int8 block: ``[B,
     gsel, 64]`` f32. ``q`` [B, d] f32 (the unquantized queries), ``gidx``
-    [B, gsel] int32 group indices (clamped into range)."""
+    [B, gsel] int32 group indices (clamped into ``[0, N/64)``)."""
     _check_int8_operands(x8, scale, xsq, bias, q, torch.float32)
     b, gsel = gidx.shape
     if b != q.shape[0]:
@@ -520,26 +601,14 @@ def int8_rescore(x8, scale, xsq, bias, q, gidx, *, metric):
     if gidx.dtype != torch.int32 or gidx.device != x8.device:
         raise TypeError("gidx must be an int32 tensor on the operands' device")
     if x8.device.type == "cpu":
-        return _int8_rescore_ref(x8, scale, xsq, bias, q, gidx, metric=metric)
+        return _int8_rescore_ref(x8, scale, xsq, bias, q,
+                                 gidx.clamp(0, x8.shape[0] // GROUP - 1), metric=metric)
     if not x8.is_cuda:
         raise ValueError(f"int8_rescore runs on cuda or cpu tensors, not {x8.device}")
-    from .. import _build
-
     if not all(t.is_contiguous() for t in (x8, scale, xsq, bias)):
         raise ValueError("kernel operands must be contiguous")
-    n, d = x8.shape
-    q = q.contiguous()
-    qsq = (q * q).sum(dim=1)
-    gidx = gidx.contiguous()
-    out = torch.empty((b, gsel, GROUP), dtype=torch.float32, device=x8.device)
-    lib = _build.load()
-    code = lib.vt_int8_rescore(x8.data_ptr(), scale.data_ptr(), xsq.data_ptr(),
-                               bias.data_ptr(), q.data_ptr(), qsq.data_ptr(), gidx.data_ptr(),
-                               out.data_ptr(), n, d, b, gsel, int(_is_l2(metric)),
-                               torch.cuda.current_stream(x8.device).cuda_stream)
-    _build.check(code, "int8_rescore")
-    LAUNCHES["int8_rescore"] += 1
-    return out
+    lead = (x8.data_ptr(), scale.data_ptr(), xsq.data_ptr(), bias.data_ptr())
+    return _group_rescore("int8_rescore", lead, x8, q, gidx, metric=metric)
 
 
 def fused_int8_search(x8, scale, xsq, bias, lex_rank, q, *, metric, k):
@@ -652,8 +721,6 @@ def stage_gmin_scan(x, xsq, bias, q, *, metric, dims):
         return gmin, rank, bounded
     if not x.is_cuda:
         raise ValueError(f"stage_gmin_scan runs on cuda or cpu tensors, not {x.device}")
-    from .. import _build
-
     if not all(t.is_contiguous() for t in (xsq, bias)):
         raise ValueError("kernel operands must be contiguous")
     n = x.shape[0]
@@ -768,8 +835,6 @@ def fused_sign_scan(signs, valid8, qsigns, *, d):
         return _fused_sign_scan_ref(signs, valid8, qsigns, d=d)
     if not signs.is_cuda:
         raise ValueError(f"fused_sign_scan runs on cuda or cpu tensors, not {signs.device}")
-    from .. import _build
-
     for t in (signs, valid8, qsigns):
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
@@ -820,8 +885,6 @@ def extract_group_rows(mat, gidx):
         return _extract_group_rows_ref(mat, gidx)
     if not mat.is_cuda:
         raise ValueError(f"extract_group_rows runs on cuda or cpu tensors, not {mat.device}")
-    from .. import _build
-
     b, rows, lanes = mat.shape
     row_bytes = lanes * mat.element_size()
     if not mat.is_contiguous() or mat.data_ptr() % 16 or row_bytes % 16:
