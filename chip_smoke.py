@@ -1,8 +1,9 @@
 """On-card smoke gate of the PyTorch port (``vettore_tpu_torch``).
 
 Drives the port's paths — exact flat search (f32, bf16 and int8 storage),
-the funnel and quantized search modes, and the multi-vector MaxSim search,
-through ``Collection`` — on one CUDA card, builds the hand-written CUDA
+the funnel and quantized search modes, the HNSW index (its kNN bulk build
+and batched beam search) and the multi-vector MaxSim search, through
+``Collection`` — on one CUDA card, builds the hand-written CUDA
 kernels from this checkout, holds every kernel against its plain PyTorch
 version at the main path's shapes, and checks search results against
 float64 numpy oracles. Imports nothing of JAX.
@@ -18,8 +19,9 @@ Phases (each prints one line; any failure exits non-zero):
    128; cosine and l2, f32 and bf16, all on the direct TMA route), K6
    ``fused_sign_scan`` and K7 ``extract_group_rows`` (at the funnel's and
    the quantized mode's shapes) against their plain versions, with median
-   times of both, K6's operand route and ``torch._int_mm`` on K6's
-   operands (the int8 product alone: a yardstick, not K6's function);
+   times of both (K7's wrapper and, by ``torch.profiler``, its kernel
+   alone), K6's operand route and ``torch._int_mm`` on K6's operands (the
+   int8 product alone: a yardstick, not K6's function);
 2c. K3 ``int8_gmin_scan`` (bit-equal; its route and the ``torch._int_mm``
    yardstick as K6's) and K4 ``int8_rescore`` at the same
    N, d, B (cosine and l2), K2 (f32, bf16) and K4 on 512 copies of one
@@ -46,6 +48,15 @@ Phases (each prints one line; any failure exits non-zero):
    (``ops/pipeline.funnel_pipeline_batch``) over a bf16 copy of the block,
    which runs K5 on bf16 rows: its launches, route, ms per batch and
    overlap@10 with the funnel oracle;
+4d. BASELINE config 2: ``Collection(index="hnsw")`` (m 16, m0 32,
+   ef_construction 100, ef_search 64) over phase 4's corpus; ``put_matrix``
+   bulk-builds the graph through the kNN build on the card (timed), then
+   ``search_batch_device`` on the batch of 512 at limit 10 (ms per batch,
+   a ``torch.profiler`` split with the idle share), one hydrated
+   ``search_batch`` and one ``search``: recall@10 >= 0.95 against phase 4's
+   exact ids, every raw score within 1e-5 of its float64 dot, hits in
+   (rank, id) order; then 3,000 rows through host inserts (below the bulk
+   threshold), served by the device beam, against a float64 oracle;
 4c. ``storage_view("int8")`` of phase 4's index: overlap@10 against exact
    f32 on 32 queries, no host route, the K3/K4 launch counts grown (K3 on
    the direct TMA route, K4 on the direct bulk-copy route), ms per device batch of 512 and its
@@ -118,6 +129,16 @@ PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "bytes": 
 QUANT_C = 500
 FUNNEL_STAGES, FUNNEL_C = (128, 256, 384), 200
 N_ADAPTIVE_ORACLE = 16
+#: BASELINE.json config 2: HNSW over the 1M x 768 corpus, its bar on
+#: recall@10 against exact flat, and the host-built graph's size (below
+#: HnswIndex.BULK_THRESHOLD, above the device beam's 2,048 nodes)
+HNSW_OPTS = {"m": 16, "m0": 32, "ef_construction": 100, "ef_search": 64}
+HNSW_RECALL_MIN = 0.95
+HNSW_HOST_N = 3000
+#: HNSW raw scores against float64 dots of the stored rows; the most a raw
+#: score may rise from one hit to the next (two f32 sums of one dot)
+HNSW_RAW_TOL = 1e-5
+HNSW_ORDER_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -213,6 +234,25 @@ def cuda_ms(torch, fn, reps=7):
     return float(np.median(times))
 
 
+def kernel_ms(torch, fn, key, reps=10):
+    """Device ms per call of ``fn`` spent in kernels whose name holds
+    ``key`` (``torch.profiler``): a kernel's own time, without the
+    wrapper's host work that ``cuda_ms`` counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU and key in e.key.lower())
+    assert total > 0, f"the profiler recorded no {key} kernel"
+    return total / 1e3 / reps
+
+
 def host_ms(torch, fn, reps=7):
     """Median wall milliseconds of ``fn`` including a device synchronise."""
     fn()
@@ -282,14 +322,16 @@ def adaptive_kernels(torch, fs, select, x32, bias, q, card):
         out = fs.extract_group_rows(mat, gidx)
         assert torch.equal(out, fs._extract_group_rows_ref(mat, gidx)), f"K7 {label} differs"
         k7 = cuda_ms(torch, lambda: fs.extract_group_rows(mat, gidx))
+        k7_kernel = kernel_ms(torch, lambda: fs.extract_group_rows(mat, gidx), "extract_rows")
         k7_plain = cuda_ms(torch, lambda: fs._extract_group_rows_ref(mat, gidx))
         # the one PyTorch call computing the same rows (the port never calls it)
         idx3 = gidx.long()[:, :, None].expand(b, gidx.shape[1], fs.GROUP).contiguous()
         k7_lib = cuda_ms(torch, lambda: torch.gather(mat, 1, idx3))
         log(f"  K7 extract_group_rows {label} [{b}, {gidx.shape[1]}, {fs.GROUP}] "
-            f"{mat.dtype}: bit-equal, {k7:.3f} ms vs plain {k7_plain:.3f} ms, torch.gather "
+            f"{mat.dtype}: bit-equal, wrapper {k7:.3f} ms (CUDA events), kernel alone "
+            f"{k7_kernel:.4f} ms (torch.profiler) vs plain {k7_plain:.3f} ms, torch.gather "
             f"{k7_lib:.3f} ms {card}")
-        return k7, k7_plain, k7_lib
+        return k7, k7_kernel, k7_plain, k7_lib
 
     k7_case(funnel_rank.view(b, ng, fs.GROUP), funnel_gmin, FUNNEL_C + fs.GROUP_SLACK,
             "funnel")
@@ -309,7 +351,7 @@ def adaptive_kernels(torch, fs, select, x32, bias, q, card):
     log(f"  K6 sign_scan d={x32.shape[1]}: bit-equal, {times['k6']:.3f} ms vs plain "
         f"{times['k6_plain']:.3f} ms; product-only yardstick torch._int_mm "
         f"{times['k6_int_mm']:.3f} ms; routes {fs.ROUTES['sign_scan']} {card}")
-    times["k7"], times["k7_plain"], times["k7_lib"] = k7_case(
+    times["k7"], times["k7_kernel"], times["k7_plain"], times["k7_lib"] = k7_case(
         ham16.view(b, ng, fs.GROUP), gmin6, QUANT_C, "quantized")
     log(f"  K5 routes {routes} (every K5 call above) {card}")
     return errs, times
@@ -865,13 +907,177 @@ def adaptive_modes(torch, col, stored, queries, exact, card):
     return launches, launches16
 
 
+def in_rank_id_order(hits, tol=HNSW_ORDER_TOL):
+    """Whether cosine hits ``[(id, raw)]`` come in (rank, id) order: raw
+    scores do not rise by more than ``tol`` from one hit to the next (the
+    search orders by f32 ranks and recomputes the raw scores by another
+    f32 sum), and exactly equal scores come in id order."""
+    return all(ra >= rb - tol and (ra != rb or ia < ib)
+               for (ia, ra), (ib, rb) in zip(hits, hits[1:]))
+
+
+def hnsw_hits_check(graph, slots, raws, rows_of, prepared):
+    """HNSW results against float64: every raw score within HNSW_RAW_TOL of
+    the f64 dot of its id's stored row (``rows_of(ids)``) with its
+    (normalised) query, and each query's hits in (rank, id) order. Returns
+    (id lists, max raw error)."""
+    got, err = [], 0.0
+    for b, (row_slots, row_raws) in enumerate(zip(slots.cpu().tolist(), raws.cpu().tolist())):
+        hits = [(graph.ids[s], r) for s, r in zip(row_slots, row_raws) if s >= 0]
+        ids = [h[0] for h in hits]
+        rows = rows_of(ids).astype(np.float64)
+        rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+        want = rows @ prepared[b].astype(np.float64)
+        err = max(err, float(np.abs(np.array([h[1] for h in hits]) - want).max()))
+        assert in_rank_id_order(hits), f"query {b}: hits not in (rank, id) order"
+        got.append(ids)
+    assert err <= HNSW_RAW_TOL, f"HNSW raw scores off by {err}"
+    return got, err
+
+
+class Spans:
+    """Wall seconds of calls to ``(module, name)`` functions while active,
+    each ended by a device synchronise: ``{name: [seconds per call]}``."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.seconds = torch, targets, {}
+
+    def __enter__(self):
+        self.saved = [(module, name, getattr(module, name)) for module, name in self.targets]
+        for module, name, fn in self.saved:
+            setattr(module, name, self._timed(name, fn))
+        return self.seconds
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def recall_at(got, want, k=10):
+    return float(np.mean([len(set(g[:k]) & set(w[:k])) / k for g, w in zip(got, want)]))
+
+
+def hnsw_config2(torch, vt, rng, corpus, ids, queries, exact, card):
+    """Phase 4d: BASELINE config 2, HNSW over phase 4's 1M x 768 corpus
+    (``put_matrix`` bulk-builds the graph through the kNN build on the
+    card), searched by the batch of 512 at limit 10 against phase 4's exact
+    ids; then a 3,000-row graph built by host inserts and served by the
+    device beam. Returns the config-2 numbers."""
+    from vettore_tpu_torch.index import hnsw_build, hnsw_knn_build
+    from vettore_tpu_torch.index.hnsw_device import DeviceGraph
+    from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.ops import maxsim as ms
+    from vettore_tpu_torch.ops.distance import normalize_rows
+
+    dev = torch.device(DEVICE)
+    prepared = normalize_rows(queries, "l2")
+    qdev = torch.from_numpy(prepared).to(dev)
+    exact_ids = [[r.id for r in row] for row in exact]
+    col = vt.Collection(name="config-2", dimensions=D_MAIN, metric="cosine", index="hnsw",
+                        index_options=HNSW_OPTS, device=dev)
+    reset_counts(fs, ms)
+    # where the build's seconds go: the index's bulk build within the
+    # collection's ingest, the host preamble (levels, slot order) and each
+    # layer's adjacency within the build
+    targets = [(hnsw_build, "bulk_build"), (hnsw_knn_build, "_prep_order"),
+               (hnsw_knn_build, "_layer_adjacency"), (hnsw_knn_build, "_kmeans_assign"),
+               (hnsw_knn_build, "_knn_chunk"), (hnsw_knn_build, "_reciprocal_pass")]
+    with Spans(torch, targets) as spans:
+        t0 = time.perf_counter()
+        col.put_matrix(ids, corpus)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    graph = col.index._bulk
+    assert graph is not None and graph.n == corpus.shape[0], "no bulk graph"
+    assert graph.x.device.type == dev.type, graph.x.device
+    t0 = time.perf_counter()
+    slots, raws = col.index.search_batch_device(qdev, 10)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    assert slots.device.type == dev.type and slots.shape == (len(queries), 10), slots.shape
+    got, err = hnsw_hits_check(graph, slots, raws, lambda h: corpus[[int(i[4:]) for i in h]],
+                               prepared)
+    recall = recall_at(got, exact_ids)
+    assert recall >= HNSW_RECALL_MIN, f"config 2 recall@10 {recall}"
+    ms_dev = host_ms(torch, lambda: col.index.search_batch_device(qdev, 10))
+    hydrated = col.search_batch(queries, limit=10)
+    assert [[r.id for r in row] for row in hydrated] == got, "search_batch != device path"
+    single = col.search(queries[0].tolist(), limit=10)
+    assert [r.id for r in single] == got[0], "search != its batch row"
+    ms_sync = host_ms(torch, lambda: col.search_batch(queries, limit=10), reps=3)
+    ms_single = host_ms(torch, lambda: col.search(queries[0].tolist(), limit=10), reps=3)
+    launches = {**fs.LAUNCHES, **ms.LAUNCHES}
+    layers = ", ".join(f"{t:.1f}" for t in spans["_layer_adjacency"])
+    log(f"  config 2 ingest: put_matrix {build_s:.1f}s, of which the index's bulk build "
+        f"{spans['bulk_build'][0]:.1f}s: host preamble (levels, slot order) "
+        f"{spans['_prep_order'][0]:.1f}s, layer adjacency by layer 0.. [{layers}]s; over all "
+        f"layers k-means {sum(spans['_kmeans_assign']):.1f}s, block scoring "
+        f"{sum(spans['_knn_chunk']):.1f}s ({len(spans['_knn_chunk'])} chunks), reciprocal "
+        f"passes {sum(spans['_reciprocal_pass']):.1f}s {card}")
+    log(f"  config 2: {graph.n} nodes, layers 0-{graph.lmax}, kNN bulk build (put_matrix) "
+        f"{build_s:.1f}s; search_batch_device B={len(queries)} limit 10: first call "
+        f"{first_ms:.1f} ms, then {ms_dev:.3f} ms per batch; search_batch (sync, hydrated) "
+        f"{ms_sync:.3f} ms; single search {ms_single:.3f} ms {card}")
+    busy, wall = profile_runs(torch, {"hnsw device": lambda: col.index.search_batch_device(
+        qdev, 10)}, card)["hnsw device"]
+    log(f"  config 2: recall@10 {recall:.4f} against exact flat on {len(queries)} queries "
+        f"(bar {HNSW_RECALL_MIN}); raw scores within {err:.2g} of float64 (tol {HNSW_RAW_TOL}); "
+        f"(rank, id) order; search_batch and search equal the device path; kernel "
+        f"launches {launches} (the HNSW path runs plain PyTorch)")
+    del col, graph, slots, raws
+    torch.cuda.empty_cache()
+
+    # a graph built by host inserts (below BULK_THRESHOLD), served on the card
+    n = HNSW_HOST_N
+    data = clustered(rng, n, D_MAIN)
+    hids = [f"h-{i:05d}" for i in range(n)]
+    hq = near_queries(rng, data, 64)
+    colh = vt.Collection(name="hnsw-host", dimensions=D_MAIN, metric="cosine", index="hnsw",
+                         index_options=HNSW_OPTS, device=dev)
+    t0 = time.perf_counter()
+    colh.put_matrix(hids, data)
+    insert_s = time.perf_counter() - t0
+    index = colh.index
+    assert index._bulk is None and index._use_device(), "the host graph should serve on the card"
+    hprep = normalize_rows(hq, "l2")
+    hslots, hraws = index.search_batch_device(torch.from_numpy(hprep).to(dev), 10)
+    assert isinstance(index._device, DeviceGraph) and index._device.x.device.type == dev.type
+    stored = normalize_rows(data, "l2").astype(np.float64)
+    stored /= np.linalg.norm(stored, axis=1, keepdims=True)
+    sims = stored @ hprep.astype(np.float64).T
+    want = [[hids[i] for i in sorted(np.argpartition(-sims[:, b], 10)[:10],
+                                     key=lambda i: (-sims[i, b], hids[i]))] for b in range(64)]
+    hgot, herr = hnsw_hits_check(index._device, hslots, hraws,
+                                 lambda h: data[[int(i[2:]) for i in h]], hprep)
+    hrecall = recall_at(hgot, want)
+    assert hrecall >= HNSW_RECALL_MIN, f"host-built graph recall@10 {hrecall}"
+    assert [[r.id for r in row] for row in colh.search_batch(hq, limit=10)] == hgot
+    log(f"  host-built graph: {n}x{D_MAIN} through {n} host inserts in {insert_s:.1f}s, served by "
+        f"the device beam: recall@10 {hrecall:.4f} against float64 exact on 64 queries, raw "
+        f"within {herr:.2g} {card}")
+    colh.close()
+    return {"build_s": build_s, "ms": ms_dev, "sync_ms": ms_sync, "recall": recall,
+            "busy": busy, "wall": wall}
+
+
 def profile_runs(torch, runs, card, reps=3):
     """Traces ``reps`` calls of each run with ``torch.profiler`` and prints
     device-busy and wall ms per call, the device's idle share, and the
-    kernels that took the most device time."""
+    kernels that took the most device time. Returns (busy, wall) ms per
+    call by label."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    out = {}
     for label, fn in runs.items():
         fn()
         torch.cuda.synchronize()
@@ -889,6 +1095,8 @@ def profile_runs(torch, runs, card, reps=3):
                         for e in kernels[:4])
         log(f"  profile {label}: device busy {busy:.3f} ms per call, wall {wall:.3f} ms, "
             f"idle {max(0.0, 1 - busy / wall):.1%}; top kernels (ms per call): {top} {card}")
+        out[label] = (busy, wall)
+    return out
 
 
 def main() -> int:
@@ -1114,6 +1322,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[phase 4b] configs 3 and 4 ({time.perf_counter() - t0:.1f}s)")
 
+    # ---- phase 4d: BASELINE config 2, HNSW on the same corpus -------------
+    t0 = time.perf_counter()
+    hnsw = hnsw_config2(torch, vt, rng, corpus, ids, queries, got, card)
+    del corpus, got
+    log(f"[phase 4d] config 2 HNSW ({N_CORPUS}x{D_MAIN} cosine, m 16, m0 32, ef_search 64, "
+        f"batch {B_MAIN}, limit 10): recall@10 {hnsw['recall']:.4f} against exact flat, build "
+        f"{hnsw['build_s']:.1f}s, {hnsw['ms']:.3f} ms per batch (busy {hnsw['busy']:.3f} ms, "
+        f"idle {max(0.0, 1 - hnsw['busy'] / hnsw['wall']):.1%}); a host-built graph on the "
+        f"device beam ({time.perf_counter() - t0:.1f}s)")
+
     # ---- phase 5: snapshot round trip -------------------------------------
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1190,6 +1408,9 @@ def main() -> int:
          "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
         for name, src, tpu, counts, k_ms, plain_ms, lib_ms, bnd in rows
     ]
+    for k in kernels:  # K7's kernel alone, beside its wrapper's time
+        if k["name"] == "extract_group_rows":
+            k["kernel_ms"] = adaptive_times["k7_kernel"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,10 @@ PORT_MODULES = (
     "vettore_tpu_torch.collection",
     "vettore_tpu_torch.convert",
     "vettore_tpu_torch.index.flat",
+    "vettore_tpu_torch.index.hnsw",
+    "vettore_tpu_torch.index.hnsw_build",
+    "vettore_tpu_torch.index.hnsw_device",
+    "vettore_tpu_torch.index.hnsw_knn_build",
     "vettore_tpu_torch.observability",
     "vettore_tpu_torch.ops.distance",
     "vettore_tpu_torch.ops.flat_scan",

@@ -926,3 +926,93 @@ def test_fused_search_near_ties_on_card_match_cpu(cuda, metric):
     assert bool(got[3]) and bool(want[3])
     assert torch.equal(got[0].cpu(), want[0])
     assert want[0][0].tolist() == [64 * (2 * i + 1) + i for i in (19, 18, 17, 16)]
+
+
+# ---------------------------------------------------------------------------
+# HNSW (plain PyTorch on the card): the beam and the kNN build on cuda
+# ---------------------------------------------------------------------------
+
+
+def _hnsw_bulk(device, n=4096, d=64, metric="cosine", seed=0):
+    """A kNN-built HNSW index over clustered unit rows (the build's
+    buckets shrunk so a 4,096-row corpus runs k-means), and queries."""
+    from vettore_tpu_torch.index import hnsw_knn_build as knn
+    from vettore_tpu_torch.index.hnsw import HnswIndex
+
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(64, d)).astype(np.float32)
+    x = centres[rng.integers(0, 64, n)] + 0.3 * rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.integers(0, n, 96)] + 0.1 * rng.normal(size=(96, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    saved = knn.MIN_NGB
+    knn.MIN_NGB = 16
+    try:
+        index = HnswIndex(metric, {"m": 8, "m0": 16, "ef_construction": 64, "ef_search": 48,
+                                   "build": "knn"}, device=device)
+        index.BULK_THRESHOLD = 2
+        index.put_many((f"g{i:05d}", v) for i, v in enumerate(x))
+    finally:
+        knn.MIN_NGB = saved
+    return index, x, q
+
+
+def _moved(graph, device):
+    """The same bulk graph with its tensors on ``device``."""
+    from vettore_tpu_torch.index.hnsw_build import BulkGraph
+
+    return BulkGraph(ids=graph.ids, n=graph.n, m=graph.m, m0=graph.m0, lmax=graph.lmax,
+                     metric=graph.metric, x=graph.x.to(device), a0=graph.a0.to(device),
+                     up_index=graph.up_index.to(device), up_adj=graph.up_adj.to(device),
+                     lex_rank=graph.lex_rank.to(device), entry_slot=graph.entry_slot,
+                     entry_level=graph.entry_level, levels=graph.levels)
+
+
+def _beam(graph, q, traversal, limit=10):
+    from vettore_tpu_torch.index import hnsw_device as hd
+
+    bf16 = traversal == "bf16"
+    slots, block = graph.hubs(torch.bfloat16 if bf16 else torch.float32)
+    return hd.search_impl(
+        graph.x, graph.a0, graph.up_index, graph.up_adj, graph.lex_rank, graph.entry_slot,
+        graph.entry_level, q.to(graph.x.device), metric=graph.metric, lmax=graph.lmax, ef=48,
+        limit=limit, max_steps=hd.step_bound(48), xb=graph.xb if bf16 else None,
+        hub_slots=slots, hub_x=block)
+
+
+@pytest.mark.parametrize("traversal", ["bf16", "f32"])
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_hnsw_beam_on_card_matches_cpu(cuda, metric, traversal):
+    index, _x, q = _hnsw_bulk("cpu", metric=metric)
+    cpu_graph = index._bulk
+    q = torch.from_numpy(q)
+    want, _wraw, _wrank = _beam(cpu_graph, q, traversal)
+    got, raw, rank = _beam(_moved(cpu_graph, cuda), q, traversal)
+    got, raw, rank = got.cpu(), raw.cpu(), rank.cpu()
+    overlap = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10 for a, b in zip(got, want)])
+    assert overlap >= 0.99, overlap
+    lex = cpu_graph.lex_rank.long()
+    for row_ids, row_rank in zip(got.tolist(), rank.tolist()):
+        keys = [(r, int(lex[s])) for s, r in zip(row_ids, row_rank) if s >= 0]
+        assert keys == sorted(keys) and len(keys) == 10  # (rank, id) order
+    assert torch.isfinite(raw).all()
+
+
+def test_hnsw_knn_build_on_card(cuda):
+    """The kNN build and the index's search on cuda: the graph's recall@10
+    against exact, the same slots and levels as the CPU build, the results
+    in (rank, id) order."""
+    index, x, q = _hnsw_bulk(cuda)
+    graph = index._bulk
+    assert graph.x.is_cuda and graph.a0.is_cuda
+    cpu_index, _x, _q = _hnsw_bulk("cpu")
+    np.testing.assert_array_equal(graph.levels, cpu_index._bulk.levels)
+    assert graph.ids == cpu_index._bulk.ids
+    hits = index.search_batch(q.astype(np.float64), 10)
+    exact = np.argsort(-(q.astype(np.float64) @ x.T.astype(np.float64)), axis=1)[:, :10]
+    recall = np.mean([len({h[0] for h in row} & {f"g{j:05d}" for j in exact[i]}) / 10
+                      for i, row in enumerate(hits)])
+    assert recall >= 0.95, recall
+    for row in hits:  # (rank, id) order; the raw scores are a second f32 sum
+        assert all(ra >= rb - 1e-6 and (ra != rb or ia < ib)
+                   for (ia, ra), (ib, rb) in zip(row, row[1:]))

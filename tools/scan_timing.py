@@ -5,12 +5,16 @@ blocks, cosine and l2), K3 ``int8_gmin_scan`` (cosine), K5
 ``fused_sign_scan`` and the MaxSim ``maxsim_rank_scan`` (cosine); and the
 two rescores, K2 ``rescore`` (f32 and bf16 blocks) and K4
 ``int8_rescore`` (cosine), on the groups that ``select.group_topk`` picks
-from K1's group minima at gsel = 18 (the flat search's at limit 10), whole
-only: the ablation and ``--phases`` builds cut the scan skeleton, which
-the rescores do not run. Beside each rescore's time around its wrapper,
-``torch.profiler`` gives its kernel's device time (``_kernel``) and all
-the device time of one call (``_device``: with the sort and the query
-norms); the rest of the wrapper's time is host work. Where the package's
+from K1's group minima at gsel = 18 (the flat search's at limit 10), and
+the K7 gather ``extract_group_rows`` at the funnel's and the quantized
+mode's shapes (the rows of K5's f32 ranks that ``group_topk`` picks from
+K5's group minima at 200 + ``GROUP_SLACK`` groups, and of K6's int16
+Hamming distances at 500 groups), whole only: the ablation and
+``--phases`` builds cut the scan skeleton, which these do not run. Beside
+each one's time around its wrapper, ``torch.profiler`` gives its kernel's
+device time (``_kernel``) and all the device time of one call
+(``_device``: with the sort and the query norms); the rest of the
+wrapper's time is host work. Where the package's
 plan may sort the pairs by group (B = 512), ``_sorted`` and ``_unsorted``
 time the same call with the sort forced on and off: what reading a
 shared group once saves.
@@ -44,13 +48,15 @@ one call of each kernel in a copy of the package whose consumer
 warpgroups count ``clock64()`` cycles (thread 0 of each, summed over
 tiles with atomics), and prints per tile and warpgroup the cycles spent
 waiting for ring stages, on the products, and in the epilogue. ``--kernels`` picks
-the kernels (``k1``, ``k2``, ``k3``, ``k4``, ``k5``, ``k6``, ``maxsim``;
-all by default).
+the kernels (``k1``, ``k2``, ``k3``, ``k4``, ``k5``, ``k6``, ``k7``,
+``maxsim``; all by default); with only whole-only kernels and no
+``--parent``, ``full`` runs alone.
 The last line is a JSON summary. Run from the repository root on a machine
 with a CUDA card:
 
     python3 tools/scan_timing.py [--parent DIR [--pairs P]] [--kernels k5,maxsim]
     python3 tools/scan_timing.py --parent DIR --pairs 5 --kernels k2,k4
+    python3 tools/scan_timing.py --kernels k7
 """
 
 from __future__ import annotations
@@ -66,11 +72,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 N, D, BATCHES = 1_000_448, 768, (512, 16, 1)
-KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "maxsim")
-#: the rescores: whole builds only (no scan skeleton to cut)
-RESCORES = {"k2", "k4"}
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "maxsim")
+#: the rescores and the gather: whole builds only (no scan skeleton to cut)
+WHOLE = {"k2", "k4", "k7"}
 #: groups per query the rescores take: limit 10 + GROUP_SLACK
 GSEL = 18
+#: K7's groups per query: the funnel's (candidates 200 + GROUP_SLACK) and
+#: the quantized mode's (candidates 500)
+K7_GROUPS = {"funnel": 208, "quantized": 500}
 #: K5's prefix; the MaxSim shape: docs, tokens per doc, d, sets, tokens per set
 DIMS = 128
 MV_N, MV_T, MV_D, MV_B, MV_Q = 100_352, 32, 128, 64, 4
@@ -151,10 +160,11 @@ def measure(reps: int, kernels: set, phases: bool) -> dict:
             times.append(start.elapsed_time(end))
         return float(np.median(times))
 
-    def device_ms(fn, reps=10):
-        """Device ms per call of ``fn`` (``torch.profiler``): the rescore
-        kernel's own, and every kernel's (the rest is the sort, the query
-        norms and the like); the wrapper's time beside them is host work."""
+    def device_ms(fn, key="rescore", reps=10):
+        """Device ms per call of ``fn`` (``torch.profiler``): its kernel's
+        own (the events whose name holds ``key``), and every kernel's (the
+        rest is the sort, the query norms and the like); the wrapper's time
+        beside them is host work."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -165,7 +175,7 @@ def measure(reps: int, kernels: set, phases: bool) -> dict:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
-        kernel = sum(e.self_device_time_total for e in events if "rescore" in e.key.lower())
+        kernel = sum(e.self_device_time_total for e in events if key in e.key.lower())
         return kernel / 1e3 / reps, sum(e.self_device_time_total for e in events) / 1e3 / reps
 
     dev = torch.device("cuda")
@@ -205,7 +215,21 @@ def measure(reps: int, kernels: set, phases: bool) -> dict:
                 t[f"k5_{storage}"] = cuda_ms(
                     lambda: fs.stage_gmin_scan(xs, x5sq, bias, q, metric="cosine", dims=DIMS),
                     "adaptive_scan")
-        if kernels & RESCORES:
+        if "k7" in kernels:
+            # gathers of real K5 and K6 outputs, as the funnel and the
+            # quantized mode make them
+            x5sq = (x[:, :DIMS] ** 2).sum(dim=1)
+            gmin5, rank5, _bounded = fs.stage_gmin_scan(x, x5sq, bias, q, metric="cosine",
+                                                        dims=DIMS)
+            gmin6, ham6 = fs.fused_sign_scan(signs, valid8, qsigns, d=D)
+            for mode, gmin, mat in (("funnel", gmin5, rank5), ("quantized", gmin6, ham6)):
+                gidx = select.group_topk(gmin, K7_GROUPS[mode])[1].int()
+                mat = mat.view(b, N // fs.GROUP, fs.GROUP)
+                fn = (lambda mat=mat, gidx=gidx: fs.extract_group_rows(mat, gidx))
+                t[f"k7_{mode}"] = cuda_ms(fn, None)
+                t[f"k7_{mode}_kernel"], t[f"k7_{mode}_device"] = device_ms(fn, "extract_rows")
+            del gmin5, rank5, gmin6, ham6, gidx, mat, fn
+        if kernels & (WHOLE - {"k7"}):
             gmin, _bounded = fs.gmin_scan(x, xsq, bias, q, metric="cosine")
             gidx = select.group_topk(gmin, GSEL, check_c=GSEL - fs.GROUP_SLACK)[1].int()
             del gmin
@@ -331,9 +355,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    cut = ",".join(k for k in KERNELS if k in kernels - RESCORES)  # the ablated builds' kernels
-    if not args.pairs and not cut:
-        ap.error("k2 and k4 are timed whole only: give --parent DIR --pairs P, or a scan too")
+    cut = ",".join(k for k in KERNELS if k in kernels - WHOLE)  # the ablated builds' kernels
+    if args.phases and not cut:
+        ap.error("--phases times the scans: give one of " + ", ".join(sorted(set(KERNELS) - WHOLE)))
     if args.phases:
         paths, order = {"phases": ablated_copy("phases")}, ["phases"]
     elif args.pairs:
@@ -341,8 +365,9 @@ def main() -> int:
         order = [v for i in range(args.pairs)
                  for v in (("parent", "full") if i % 2 == 0 else ("full", "parent"))]
     else:
-        paths = {"full": ROOT, **{name: ablated_copy(name) for name in ABLATIONS}}
-        order = ["full", *ABLATIONS, *reversed(ABLATIONS), "full"]
+        ablated = ABLATIONS if cut else {}
+        paths = {"full": ROOT, **{name: ablated_copy(name) for name in ablated}}
+        order = ["full", *ablated, *reversed(ablated), "full"] if cut else ["full"]
         if args.parent is not None:
             paths["parent"] = args.parent.resolve()
             order = ["parent", *order, "parent"]

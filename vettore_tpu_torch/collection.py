@@ -11,8 +11,12 @@ is always rebuildable from the store. Search modes:
 * ``quantized_search``    — sign-bit Hamming candidates + exact rerank
 * ``multi_vector_search`` — ColBERT MaxSim late interaction over token sets
 
-Not ported yet: the HNSW and IVF indexes, mesh sharding, ``compressed=True``
-(it needs the columnar store), the hybrid search modes, and MUVERA
+The index is the exact flat index (``index="flat"``) or the HNSW graph
+(``index="hnsw"``: host inserts, and the kNN bulk build and batched beam
+search on the collection's device, ``index/hnsw*.py``).
+
+Not ported yet: the IVF index, mesh sharding, ``compressed=True`` (it needs
+the columnar store), the hybrid search modes, ``attach_index``, and MUVERA
 candidate generation (``candidates=`` / ``muvera=`` of the multi-vector
 search). Asking for any of them raises with a message that says so.
 
@@ -34,6 +38,7 @@ from . import errors as E
 from .embedding import Embedding, Result
 from .index.base import Index, valid_index
 from .index.flat import FlatIndex, resolve_device
+from .index.hnsw import HnswIndex
 from .metrics import (
     F32_MAX,
     MAX_USIZE,
@@ -54,10 +59,11 @@ from .store.memory import MemoryStore
 SNAPSHOT_VERSION = 1
 _SCORE_MODES = ("raw", "similarity")
 
-#: search modes of the JAX package that this package does not have yet
+#: methods of the JAX package's Collection that this package does not have yet
 _NOT_PORTED_MODES = (
     "hybrid_search",
     "hybrid_search_batch",
+    "attach_index",
 )
 
 
@@ -454,8 +460,11 @@ class Collection:
             raise E.InvalidStore("compressed=True (bf16 columnar store) is not ported yet")
         if index == "flat":
             return FlatIndex(metric, index_options or None, device=device)
+        if index == "hnsw":
+            return HnswIndex(metric, index_options, device=device)
         if isinstance(index, str):
-            raise E.InvalidIndex(f"index {index!r} is not ported yet (only 'flat' is)")
+            raise E.InvalidIndex(f"index {index!r} is not ported yet (only 'flat' and "
+                                 "'hnsw' are)")
         if isinstance(index, type):
             instance = index(metric, index_options)
         else:
@@ -895,7 +904,8 @@ class Collection:
 
     @observed("search")
     def search(self, query, *, limit=10, **extra) -> list:
-        """Exact flat search for one query; ``Result`` list, best first."""
+        """Index search (exact flat, or the HNSW beam) for one query; ``Result``
+        list, best first."""
         _reject_extra(extra)
         _validate_limit(limit)
         q = self.prepare_query(query)

@@ -14,7 +14,10 @@ array is recognised by its dtype's name and widened bit for bit.
 * :func:`int8_device_state` — a JAX int8 ``storage_view``'s quantized block
   and scales (the operands of ``fused_int8_search``);
 * :func:`token_block_state` — a JAX ``_VectorCache``'s multi-vector token
-  block (the operands of the MaxSim search, ``ops/maxsim.py``).
+  block (the operands of the MaxSim search, ``ops/maxsim.py``);
+* :func:`hnsw_graph_state` — a JAX HNSW device graph (a bulk build's
+  ``BulkGraph`` or a host graph's ``DeviceGraph`` snapshot) as this
+  package's, so both packages' beam searches run on one graph.
 
 Snapshots need no conversion: both packages write and read the same file
 format (``store/snapshot.py``).
@@ -27,6 +30,8 @@ import torch
 
 from .errors import DimensionMismatch, InvalidVector
 from .index.flat import FlatIndex, resolve_device, round_bf16
+from .index.hnsw_build import BulkGraph
+from .index.hnsw_device import DeviceGraph
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -150,3 +155,38 @@ def token_block_state(tokens, counts, *, device):
     if ((counts_t < 0) | (counts_t > tok_t.shape[1])).any():
         raise InvalidVector(f"token counts must lie in [0, {tok_t.shape[1]}]")
     return tok_t.to(dev), counts_t.to(dev)
+
+
+def hnsw_graph_state(graph, *, device):
+    """This package's device graph for a JAX HNSW graph, on ``device``.
+
+    ``graph`` is a JAX ``hnsw_build.BulkGraph`` (it has ``levels``) or a
+    JAX ``hnsw_device.DeviceGraph`` (it has the hub slots of its host
+    graph); its fields are read through ``np.asarray``: ``x`` (f32), ``a0``,
+    ``up_index``, ``up_adj``, ``lex_rank``, ``valid`` (or None),
+    ``entry_slot``, ``entry_level``, ``ids``, ``n``, ``m``, ``m0``,
+    ``lmax`` and ``metric``, and for a bulk graph ``levels`` and
+    ``lex_spacing``. Slots, adjacency and tie-break ranks are kept as they
+    are, so slot numbers mean the same node in both."""
+    dev = resolve_device(device)
+    n = int(graph.n)
+
+    def tensor(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+    fields = dict(
+        ids=[str(i) for i in graph.ids][:n], n=n, m=int(graph.m), m0=int(graph.m0),
+        lmax=int(graph.lmax), metric=str(graph.metric),
+        x=torch.from_numpy(_as_f32(graph.x)[:n]).to(dev),
+        a0=tensor(np.asarray(graph.a0)[:n], np.int32),
+        up_index=tensor(np.asarray(graph.up_index)[:n], np.int32),
+        up_adj=tensor(graph.up_adj, np.int32),
+        lex_rank=tensor(np.asarray(graph.lex_rank)[:n], np.int32),
+        entry_slot=int(np.asarray(graph.entry_slot)),
+        entry_level=int(np.asarray(graph.entry_level)),
+        valid=None if graph.valid is None else tensor(np.asarray(graph.valid)[:n], bool),
+    )
+    if hasattr(graph, "levels"):
+        return BulkGraph(**fields, levels=np.array(graph.levels, dtype=np.int32)[:n],
+                         lex_spacing=int(getattr(graph, "lex_spacing", 1)))
+    return DeviceGraph(**fields, hub_slots=np.array(graph._hub_slots_np, dtype=np.int32))

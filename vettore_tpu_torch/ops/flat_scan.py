@@ -874,16 +874,23 @@ def extract_group_rows(mat, gidx):
 
     The JAX package gathers 64-wide group rows as HALF rows of a 128-lane
     view (``half=True``) because Mosaic loads whole 128-lane rows; here the
-    64-wide rows of the ``[B, N/64, 64]`` view are gathered directly."""
+    64-wide rows of the ``[B, N/64, 64]`` view are gathered directly.
+
+    On an H100 the kernel takes ~0.003 ms at B = 1-16 and 0.02-0.03 ms at
+    B = 512, so this wrapper's host work is most of a call: it checks each
+    operand once, with the cheap accessors (``get_device``, not
+    ``torch.device`` objects), and reads the raw stream of the tensor's
+    device directly."""
     if mat.dim() != 3 or gidx.dim() != 2 or gidx.shape[0] != mat.shape[0]:
         raise ValueError(f"mat {tuple(mat.shape)} and gidx {tuple(gidx.shape)} do not pair")
     if mat.dtype not in (torch.float32, torch.int16):
         raise TypeError(f"mat must be float32 or int16, got {mat.dtype}")
-    if gidx.dtype != torch.int32 or gidx.device != mat.device:
+    dev = mat.get_device()
+    if gidx.dtype != torch.int32 or gidx.get_device() != dev:
         raise TypeError("gidx must be an int32 tensor on mat's device")
-    if mat.device.type == "cpu":
-        return _extract_group_rows_ref(mat, gidx)
     if not mat.is_cuda:
+        if mat.device.type == "cpu":
+            return _extract_group_rows_ref(mat, gidx)
         raise ValueError(f"extract_group_rows runs on cuda or cpu tensors, not {mat.device}")
     b, rows, lanes = mat.shape
     row_bytes = lanes * mat.element_size()
@@ -896,7 +903,7 @@ def extract_group_rows(mat, gidx):
     lib = _build.load()
     code = lib.vt_extract_group_rows(mat.data_ptr(), gidx.data_ptr(), out.data_ptr(),
                                      b, rows, c, row_bytes,
-                                     torch.cuda.current_stream(mat.device).cuda_stream)
+                                     torch._C._cuda_getCurrentRawStream(dev))
     _build.check(code, "extract_group_rows")
     LAUNCHES["extract_group_rows"] += 1
     return out
