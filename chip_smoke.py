@@ -1,8 +1,9 @@
 """On-card smoke gate of the PyTorch port (``vettore_tpu_torch``).
 
 Drives the port's paths — exact flat search (f32, bf16 and int8 storage),
-the funnel and quantized search modes, the HNSW index (its kNN bulk build
-and batched beam search) and the multi-vector MaxSim search, through
+the funnel and quantized search modes, the HNSW index (its kNN bulk build,
+batched beam search and graph files), the multi-vector MaxSim search (exact
+and over MUVERA candidates), the hybrid pipelines and MMR, through
 ``Collection`` — on one CUDA card, builds the hand-written CUDA
 kernels from this checkout, holds every kernel against its plain PyTorch
 version at the main path's shapes, and checks search results against
@@ -57,6 +58,15 @@ Phases (each prints one line; any failure exits non-zero):
    exact ids, every raw score within 1e-5 of its float64 dot, hits in
    (rank, id) order; then 3,000 rows through host inserts (below the bulk
    threshold), served by the device beam, against a float64 oracle;
+4e. a flat hybrid on phase 4's collection: ``hybrid_search_batch`` of the
+   batch of 512 at limit 10 with the funnel, quantized and search
+   generators (100 candidates each) and the exact rerank; its ids equal
+   phase 4's exact results (the search generator holds the exact top 100),
+   no host route, the K1, K2, K5, K6 and K7 launch counts grown, each of
+   those kernels' wrappers held against its plain version on the operands
+   the path gave it (recorded during the run: K2 at the search generator's
+   k, K5, K6 and K7 at count 100), ms per sync batch and a
+   ``torch.profiler`` split of three batches;
 4c. ``storage_view("int8")`` of phase 4's index: overlap@10 against exact
    f32 on 32 queries, no host route, the K3/K4 launch counts grown (K3 on
    the direct TMA route, K4 on the direct bulk-copy route), ms per device batch of 512 and its
@@ -70,11 +80,34 @@ Phases (each prints one line; any failure exits non-zero):
    ``multi_vector_search``, all on the direct TMA route, ms per batch, a
    ``torch.profiler`` split of one batch; then a small ragged corpus (an f32
    token block: the 3xTF32 kernel) against the oracle, its launches counted
-   and direct too.
+   and direct too;
+6b. BASELINE config 5's hybrid pipeline on phase 6's collection, as
+   ``bench.py``'s ``run_hybrid_mv``: an ``HnswIndex`` (m 16, m0 32,
+   ef_construction 100, ef_search 64) bulk-built from the primary vectors
+   (timed), saved and loaded back with and without its vector block (the
+   same search results), attached (``index_kind`` "hnsw");
+   ``hybrid_search_batch`` of 64 queries at limit 30 with the hnsw and
+   quantized generators (1,000 candidates each) and the MaxSim rerank of
+   phase 6's query sets, each query's results equal to a float64 MaxSim
+   oracle over its candidate union (the HNSW beam's 1,000 and a numpy
+   Hamming top 1,000), no host route, the K6 and K7 launch counts grown
+   and both held against their plain versions on the operands the path
+   gave them (K6 at d = 128 over the cache's sign block, K7 on the
+   1,000-candidate cover),
+   overlap@10 against exact MaxSim logged; ``mmr_rerank_batch`` (cosine,
+   alpha 0.5, final_k 10) on those results, a float64 greedy order;
+   ``multi_vector_search_batch(candidates=512)`` with the default MUVERA
+   config and with ``muvera_fde.default_config`` (a 2,048-wide FDE block):
+   K5 on its fused route, K5 and K7 held against their plain versions on
+   the operands each call gave them, the candidates equal to the float64
+   top 512 by FDE dot over the card's bf16 block, the results to a float64
+   MaxSim oracle over them; and K5 alone at the 2,048-wide FDE shape,
+   timed against its plain version.
 
 The last two lines of standard output are a JSON summary of the kernels
-(each with its launches on its path, max abs error against its plain
-version, and max relative error where the tolerance is relative, kernel /
+(each with its launches on its path and on phases 4e and 6b, max abs error
+against its plain version over every check, that error on each of phases
+4e and 6b, and max relative error where the tolerance is relative, kernel /
 plain / library ms and its bound) and
 ``{"ok": true, "device": {...}}``.
 
@@ -121,6 +154,9 @@ INT8_OVERLAP_MIN = 0.90
 #: BASELINE.json config 5: docs x tokens x d, query sets of 4 tokens, batch
 MV_N, MV_T, MV_D, MV_Q, MV_B, MV_SETS = 100_000, 32, 128, 4, 64, 128
 MV_ORACLE_SETS = 8
+#: config 5's hybrid (bench.py's run_hybrid_mv): candidates per generator and
+#: the limit before MMR; MUVERA's candidate count
+HYBRID_C, HYBRID_LIMIT, MUVERA_C = 1000, 30, 512
 #: the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
 #: f32 on CUDA cores, tf32, bf16 and int8 on tensor cores, HBM3 bytes per
 #: second
@@ -366,6 +402,90 @@ def reset_counts(*modules):
         for routes in module.ROUTES.values():
             for route in routes:
                 routes[route] = 0
+
+
+#: the ``ops.flat_scan`` kernel wrappers this slice's paths run: their launch
+#: count names, their plain versions, and how many leading outputs compare
+PATH_KERNELS = {
+    "gmin_scan": ("gmin_scan", "_gmin_scan_ref", 1),
+    "rescore": ("rescore", "_rescore_ref", 0),
+    "stage_gmin_scan": ("stage_gmin_scan", "_stage_gmin_scan_ref", 2),
+    "fused_sign_scan": ("sign_scan", "_fused_sign_scan_ref", 2),
+    "extract_group_rows": ("extract_group_rows", "_extract_group_rows_ref", 0),
+}
+
+
+def _signature(args, kwargs):
+    return tuple((tuple(a.shape), a.dtype) if hasattr(a, "shape") else a
+                 for a in args) + tuple(sorted(kwargs.items()))
+
+
+class PathCalls:
+    """Within ``with PathCalls(fs, ms) as calls:``, records the operands of
+    the first call of each ``PATH_KERNELS`` wrapper per operand shape, type
+    and option (``ops.maxsim`` binds ``extract_group_rows`` by name, so it
+    is patched there too). ``check`` then calls each wrapper again on those
+    operands and holds it against its plain version."""
+
+    def __init__(self, fs, *holders):
+        self.fs, self.holders, self.calls = fs, (fs, *holders), {}
+
+    def __enter__(self):
+        self.saved = [(h, name, getattr(h, name)) for h in self.holders
+                      for name in PATH_KERNELS if hasattr(h, name)]
+        for holder, name, fn in self.saved:
+            setattr(holder, name, self._recording(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for holder, name, fn in self.saved:
+            setattr(holder, name, fn)
+
+    def _recording(self, name, fn):
+        def call(*args, **kwargs):
+            self.calls.setdefault((name, _signature(args, kwargs)), (args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    def check(self, torch, path, card):
+        """Each recorded call's wrapper against its plain version on the same
+        operands: K6 and K7 bit-equal, K1, K2 and K5 within their
+        tolerances (K5 over MUVERA's FDE block relative, as its row). Returns
+        the max abs and max relative errors by launch count name."""
+        errs, rels = {}, {}
+        for (name, _sig), (args, kwargs) in self.calls.items():
+            count, ref, outs = PATH_KERNELS[name]
+            got = getattr(self.fs, name)(*args, **kwargs)
+            want = getattr(self.fs, ref)(*args, **kwargs)
+            if outs:
+                got = got[:outs]
+                want = (want,) if outs == 1 else want
+            else:
+                got, want = (got,), (want,)
+            storage = "bf16" if args[0].dtype == torch.bfloat16 else "f32"
+            err = rel = 0.0
+            for g, w in zip(got, want):
+                if count in ("sign_scan", "extract_group_rows"):
+                    assert torch.equal(g, w), f"{path}: {name} differs from its plain version"
+                    continue
+                a, e = abs_rel_err(g, w)
+                err, rel = max(err, a), max(rel, e)
+            if count == "gmin_scan":
+                assert err <= K1_ATOL[storage], f"{path}: K1 {storage} err {err}"
+            elif count == "rescore":
+                assert err <= K2_ATOL, f"{path}: K2 err {err}"
+            elif count == "stage_gmin_scan" and kwargs["metric"] == "inner_product":
+                assert rel <= MV_RTOL["bf16"], f"{path}: K5 on the FDE block rel err {rel}"
+            elif count == "stage_gmin_scan":
+                assert err <= K5_ATOL[storage], f"{path}: K5 {storage} err {err}"
+            errs[count] = max(errs.get(count, 0.0), err)
+            rels[count] = max(rels.get(count, 0.0), rel)
+            shapes = ", ".join(f"{list(a.shape)} {str(a.dtype).removeprefix('torch.')}"
+                               for a in args if hasattr(a, "shape") and a.dim() > 1)
+            log(f"  {path}: {name} at [{shapes}] {kwargs or ''} against its plain version: "
+                f"abs err {err:.3g}, rel err {rel:.3g} {card}")
+            del got, want
+        return errs, rels
 
 
 def distinct_rows(gidx):
@@ -643,8 +763,11 @@ def profile_split(torch, fn, card, reps=3):
 
 
 def maxsim_config5(torch, vt, rng, card):
-    """Phase 6: BASELINE config 5's exact MaxSim through ``Collection``, then
-    a small ragged corpus. Returns the launch counts of the config-5 run."""
+    """Phase 6: BASELINE config 5's exact MaxSim through ``Collection``.
+    Returns the launch counts of the run, its ms per device and sync batch,
+    and what phase 6b reuses: the collection, the token block (host, id
+    order), the ids, the query vectors and sets, and the exact results of
+    the first batch."""
     from vettore_tpu_torch.ops import flat_scan as fs
     from vettore_tpu_torch.ops import maxsim as ms
 
@@ -714,10 +837,21 @@ def maxsim_config5(torch, vt, rng, card):
     log(f"  ids equal the f64 oracle on {MV_ORACLE_SETS} sets ({swaps} near-tie swaps; oracle "
         f"{oracle_s:.1f}s); single-set search == its batch row; host routes 0; launches "
         f"{launches}; MaxSim routes {routes}")
-    del col, cache, block, counts, tokens, norms
-    torch.cuda.empty_cache()
+    state = {"col": col, "tokens": tokens, "ids": ids, "queries": queries, "sets": query_sets,
+             "exact": got[:MV_B]}
+    return launches, ms_dev, ms_sync, state
 
-    # a ragged corpus through put_many with vectors: counts below T
+
+def maxsim_ragged(torch, vt, rng, query_sets, card):
+    """Phase 6, second part: a small ragged corpus (an f32 token block: the
+    MaxSim kernel's 3xTF32 instance) against the float64 oracle. Returns its
+    launch counts."""
+    from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.ops import maxsim as ms
+
+    dev = torch.device(DEVICE)
+    noise = np.float32(0.3 / np.sqrt(MV_D))
+    sets = [np.asarray(s, np.float32) for s in query_sets[:MV_ORACLE_SETS]]
     n, ids = 3000, [f"rg-{i:05d}" for i in range(3000)]
     lens = rng.integers(1, MV_T + 1, n)
     docs = clustered(rng, n, MV_D)
@@ -738,14 +872,14 @@ def maxsim_config5(torch, vt, rng, card):
     padded = np.zeros((n, MV_T, MV_D), np.float32)
     for i, v in enumerate(ragged):
         padded[i, : len(v)] = v
-    want = maxsim_oracle(padded, sets[:MV_ORACLE_SETS], ids, 10, lens=lens)
+    want = maxsim_oracle(padded, sets, ids, 10, lens=lens)
     swaps_r = sum(check_hits([(r.id, r.score) for r in row], w, 10)
                   for row, w in zip(got, want))
     log(f"  ragged corpus ({n} docs of 1..{MV_T} tokens, f32 block): ids equal the f64 "
         f"oracle on {MV_ORACLE_SETS} sets ({swaps_r} near-tie swaps); launches "
-        f"{ragged_launches}, MaxSim routes {ms.ROUTES['maxsim_rank_scan']}")
+        f"{ragged_launches}, MaxSim routes {ms.ROUTES['maxsim_rank_scan']} {card}")
     col.close()
-    return launches, ragged_launches, ms_dev, ms_sync
+    return ragged_launches
 
 
 def quantized_oracle(stored, q, count, limit):
@@ -753,6 +887,14 @@ def quantized_oracle(stored, q, count, limit):
     ``count`` best rows by (hamming, id), then the exact cosine top
     ``limit + 4`` by (score desc, id). Rows are in id order. Returns
     ``[(slots, scores)]``."""
+    return [_cosine_top(stored, cand, q[b], limit)
+            for b, cand in enumerate(hamming_candidates(stored, q, count))]
+
+
+def hamming_candidates(stored, q, count):
+    """The quantized generator in numpy: per query, the ``count`` rows of
+    ``stored`` (id order) with the fewest sign bits unlike the query's, by
+    (hamming, id)."""
     bits = np.packbits(stored >= 0.0, axis=1, bitorder="little")
     qbits = np.packbits(q >= 0.0, axis=1, bitorder="little")
     if bits.shape[1] % 8 == 0 and hasattr(np, "bitwise_count"):  # numpy >= 2
@@ -765,8 +907,7 @@ def quantized_oracle(stored, q, count, limit):
 
         def hamming(b):
             return table[bits ^ qbits[b]].sum(axis=1)
-    return [_cosine_top(stored, _smallest(hamming(b), count)[:count], q[b], limit)
-            for b in range(q.shape[0])]
+    return [_smallest(hamming(b), count)[:count] for b in range(q.shape[0])]
 
 
 def _smallest(key, count):
@@ -1069,6 +1210,307 @@ def hnsw_config2(torch, vt, rng, corpus, ids, queries, exact, card):
             "busy": busy, "wall": wall}
 
 
+def flat_hybrid(torch, col, queries, card):
+    """Phase 4e: ``hybrid_search_batch`` on phase 4's collection, the batch
+    of 512 at limit 10, generators funnel, quantized and search (100
+    candidates each by default), exact rerank. The search generator holds
+    the exact top 100, so the union holds the exact top 10: the ids must be
+    phase 4's exact ``search_batch`` results (which phase 4 holds against
+    its f64 oracle; near-ties within TIE_EPS may trade places). Returns
+    (launch counts, ms per sync batch, busy and wall ms, and the max abs
+    error of each kernel against its plain version at the shapes this run
+    gave it)."""
+    from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.ops import maxsim as ms
+
+    exact = col.search_batch(queries, limit=14)  # past the boundary, for near-ties
+    gens = ["funnel", "quantized", "search"]
+    reset_counts(fs)
+    with PathCalls(fs, ms) as calls:
+        got = col.hybrid_search_batch(queries, limit=10, generators=gens)
+        torch.cuda.synchronize()
+    launches = dict(fs.LAUNCHES)
+    for name in ("gmin_scan", "rescore", "stage_gmin_scan", "sign_scan", "extract_group_rows"):
+        assert launches[name] > 0, f"{name} not launched by the flat hybrid: {launches}"
+    assert col.host_routes == 0, f"host routes: {col.host_routes}"
+    swaps = sum(check_hits([(r.id, r.score) for r in row],
+                           ([r.id for r in w], [r.score for r in w]), 10)
+                for row, w in zip(got, exact))
+    batch_ms = host_ms(torch, lambda: col.hybrid_search_batch(queries, limit=10,
+                                                              generators=gens), reps=3)
+    busy, wall = profile_runs(torch, {"flat hybrid (sync)": lambda: col.hybrid_search_batch(
+        queries, limit=10, generators=gens)}, card)["flat hybrid (sync)"]
+    assert col.host_routes == 0
+    log(f"  flat hybrid {gens}, rerank exact, B={len(queries)} limit 10: ids equal phase 4's "
+        f"exact results ({swaps} near-tie swaps), host routes 0, {batch_ms:.3f} ms per sync "
+        f"batch; launches {launches} {card}")
+    errs = calls.check(torch, "4e flat hybrid", card)[0]
+    assert set(errs) == {"gmin_scan", "rescore", "stage_gmin_scan", "sign_scan",
+                         "extract_group_rows"}, errs
+    return launches, batch_ms, busy, wall, errs
+
+
+def maxsim_subset_oracle(tokens, cand, qset, ids, limit):
+    """Exact cosine MaxSim in float64 of the docs ``cand`` (rows of
+    ``tokens`` [N, T, d], id order; every token live) against one query
+    set: the top ``limit + 4`` by (score desc, id) as ``(ids, scores)``."""
+    q = np.asarray(qset, np.float64)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    docs = tokens[cand].astype(np.float64)
+    docs /= np.linalg.norm(docs, axis=2, keepdims=True)
+    scores = (docs @ q.T).max(axis=1).sum(axis=1)
+    order = sorted(range(len(cand)), key=lambda i: (-scores[i], ids[cand[i]]))[: limit + 4]
+    return [ids[cand[i]] for i in order], [float(scores[i]) for i in order]
+
+
+def mmr_greedy_ok(picks, initial, vecs, alpha, tol=HNSW_ORDER_TOL):
+    """Whether ``picks`` (indices into ``initial``) is a greedy MMR order in
+    float64 (cosine pair similarity): at every step the pick's MMR score is
+    within ``tol`` of the best remaining one. Returns (ok, whether each step
+    took the float64 argmax)."""
+    v = vecs.astype(np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    sims = v @ v.T
+    scores = np.array([s for _i, s in initial], np.float64)
+    chosen, exact = [], True
+    for p in picks:
+        rest = [j for j in range(len(initial)) if j not in chosen]
+        red = sims[np.ix_(rest, chosen)].max(axis=1) if chosen else np.zeros(len(rest))
+        mmr = alpha * scores[rest] - (1 - alpha) * red
+        best = mmr.max()
+        mine = mmr[rest.index(p)]
+        if mine < best - tol:
+            return False, False
+        exact &= rest[int(np.argmax(mmr))] == p
+        chosen.append(p)
+    return True, exact
+
+
+def hybrid_config5(torch, vt, state, card):
+    """Phase 6b: BASELINE config 5's hybrid pipeline on phase 6's collection
+    (as ``bench.py``'s ``run_hybrid_mv``): the HNSW graph bulk-built from the
+    primary vectors, saved and loaded back, attached; ``hybrid_search_batch``
+    with the hnsw and quantized generators (1,000 candidates each) and the
+    MaxSim rerank; MMR on its results; MUVERA candidates + the exact rerank.
+    Returns the numbers and launch counts of its runs, and K5's row at the
+    FDE shape."""
+    from vettore_tpu_torch.index.hnsw import HnswIndex
+    from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.ops import maxsim as ms
+    from vettore_tpu_torch.ops import mmr, muvera_fde
+
+    dev = torch.device(DEVICE)
+    col, tokens, ids = state["col"], state["tokens"], state["ids"]
+    qsets = state["sets"][:MV_B]
+    queries = state["queries"][:MV_B].astype(np.float64)  # normalize="none": as prepared
+    exact = [[r.id for r in row] for row in state["exact"]]
+    cache = col._scan_cache()
+    stored = cache._stack_vectors()  # primary vectors, id order
+    out = {}
+
+    # the graph: kNN bulk build, save, load (with and without x), attach
+    index = HnswIndex("cosine", HNSW_OPTS, device=dev)
+    t0 = time.perf_counter()
+    index.put_matrix(cache.ids, stored)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    qdev = torch.from_numpy(queries.astype(np.float32)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        full, bare = os.path.join(tmp, "g.npz"), os.path.join(tmp, "g-no-x.npz")
+        t0 = time.perf_counter()
+        index.save_graph(full)
+        index.save_graph(bare, include_x=False)
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = HnswIndex.load_graph("cosine", HNSW_OPTS, full, device=dev)
+        shared = HnswIndex.load_graph("cosine", HNSW_OPTS, bare, x_device=index._bulk.x,
+                                      device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+    want_slots = index.search_batch_device(qdev, HYBRID_LIMIT)[0]
+    for other in (loaded, shared):
+        assert torch.equal(other.search_batch_device(qdev, HYBRID_LIMIT)[0], want_slots), \
+            "a loaded graph searches differently"
+    assert shared._bulk.x is index._bulk.x
+    col.attach_index(loaded)
+    assert col.index_kind == "hnsw", col.index_kind
+    del index, shared
+    # the attach made a new scan cache: its token block and sign block,
+    # timed apart from the first hybrid call
+    t0 = time.perf_counter()
+    cache = col._scan_cache()
+    cache.multi_vectors()
+    cache.signs()
+    torch.cuda.synchronize()
+    out["cache_s"] = time.perf_counter() - t0
+    log(f"  config 5 graph: kNN bulk build of {MV_N}x{MV_D} primary vectors "
+        f"{out['build_s']:.1f}s; save_graph (with and without x) {out['save_s']:.1f}s, "
+        f"load_graph (both) {out['load_s']:.1f}s, searches equal; attach_index: index_kind "
+        f"{col.index_kind}, the new scan cache's token and sign blocks {out['cache_s']:.1f}s "
+        f"{card}")
+
+    # the hybrid: hnsw + quantized candidates, MaxSim rerank
+    gens = [("hnsw", {"candidates": HYBRID_C}), ("quantized", {"candidates": HYBRID_C})]
+    rerank = ("multi_vector", qsets)
+    reset_counts(fs, ms)
+    t0 = time.perf_counter()
+    with PathCalls(fs, ms) as calls:
+        got = col.hybrid_search_batch(queries, limit=HYBRID_LIMIT, generators=gens,
+                                      rerank=rerank)
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {**fs.LAUNCHES, **ms.LAUNCHES}
+    out["hybrid_launches"] = launches
+    # the host's validation of the query token sets, which every
+    # multi-vector call (MaxSim rerank, MUVERA, exact) pays
+    pad_ms = host_ms(torch, lambda: col._pad_query_sets(qsets), reps=3)
+    assert launches["sign_scan"] > 0 and launches["extract_group_rows"] > 0, launches
+    assert col.host_routes == 0, f"host routes: {col.host_routes}"
+    graph = loaded._bulk
+    hnsw_slots = loaded.search_batch_device(qdev, HYBRID_C)[0].cpu().numpy()
+    quant = hamming_candidates(stored, queries.astype(np.float32), HYBRID_C)
+    slot_of = {i: k for k, i in enumerate(ids)}  # ids are in id order
+    t0 = time.perf_counter()
+    swaps = 0
+    for b, row in enumerate(got):
+        union = sorted({slot_of[graph.ids[s]] for s in hnsw_slots[b] if s >= 0}
+                       | set(quant[b].tolist()))
+        want = maxsim_subset_oracle(tokens, np.array(union), qsets[b], ids, HYBRID_LIMIT)
+        swaps += check_hits([(r.id, r.score) for r in row], want, HYBRID_LIMIT)
+    oracle_s = time.perf_counter() - t0
+    overlap = float(np.mean([len({r.id for r in row[:10]} & set(e)) / 10
+                             for row, e in zip(got, exact)]))
+    out["hybrid_ms"] = host_ms(torch, lambda: col.hybrid_search_batch(
+        queries, limit=HYBRID_LIMIT, generators=gens, rerank=rerank), reps=3)
+    beam_ms = host_ms(torch, lambda: loaded.candidate_slots_device(qdev, HYBRID_C), reps=3)
+    out["hybrid_busy"], out["hybrid_wall"] = profile_runs(torch, {
+        "config 5 hybrid (sync)": lambda: col.hybrid_search_batch(
+            queries, limit=HYBRID_LIMIT, generators=gens, rerank=rerank)},
+        card)["config 5 hybrid (sync)"]
+    out["hybrid_overlap"] = overlap
+    log(f"  config 5 hybrid {gens}, MaxSim rerank, B={MV_B} limit {HYBRID_LIMIT}: each query's "
+        f"ids and scores equal the f64 MaxSim oracle over its candidate union ({swaps} near-tie "
+        f"swaps; oracle {oracle_s:.1f}s), host routes 0; first call {first_s:.2f}s, then "
+        f"{out['hybrid_ms']:.3f} ms per sync batch; alone, the HNSW beam at ef {HYBRID_C} "
+        f"{beam_ms:.3f} ms and the validation of the {MV_B} query token sets {pad_ms:.3f} ms; "
+        f"overlap@10 against exact MaxSim {overlap:.4f}; launches {launches} {card}")
+    out["hybrid_errs"] = calls.check(torch, "6b hybrid", card)[0]
+    assert set(out["hybrid_errs"]) == {"sign_scan", "extract_group_rows"}, out["hybrid_errs"]
+    del calls
+
+    # MMR on the hybrid's results, against the float64 greedy order
+    initial = [[(r.id, r.score) for r in row] for row in got]
+    vecs = np.stack([stored[[slot_of[i] for i, _s in row]] for row in initial])
+    vecs_dev = torch.from_numpy(vecs).to(dev)
+
+    def mmr_batch():
+        return mmr.mmr_rerank_batch(initial, vecs_dev, metric="cosine", alpha=0.5, final_k=10,
+                                    device=dev)
+
+    picked = mmr_batch()
+    equal_host = 0
+    for row, init, v in zip(picked, initial, vecs):
+        pos = {i: k for k, (i, _s) in enumerate(init)}
+        ok, _exact = mmr_greedy_ok([pos[i] for i, _s in row], init, v, 0.5)
+        assert ok and len(row) == 10, "device MMR is not a greedy order"
+        pool = [(i, [float(x) for x in v[k]]) for k, (i, _s) in enumerate(init)]
+        equal_host += row == mmr.mmr_rerank(init, pool, "cosine", 0.5, 10)
+    out["mmr_ms"] = cuda_ms(torch, mmr_batch)
+    log(f"  MMR (alpha 0.5, final_k 10) on the {MV_B} hybrid lists: a float64 greedy order in "
+        f"every query (MMR ties within {HNSW_ORDER_TOL}), equal to the host mmr_rerank in "
+        f"{equal_host} of {MV_B}; {out['mmr_ms']:.3f} ms per batch {card}")
+
+    # MUVERA: bench.py's call (the default config: FDE width d) and the
+    # module's 2,048-wide internal default
+    out["muvera"] = {}
+    for label, mu in (("default", None), ("2048", muvera_fde.default_config(MV_D))):
+        cfg = muvera_fde.normalize_config(mu, MV_D)
+        reset_counts(fs, ms)
+        routes = dict(muvera_fde.ROUTES)
+        t0 = time.perf_counter()
+        with PathCalls(fs, ms) as calls:
+            fde_got = col.multi_vector_search_batch(qsets, limit=10, candidates=MUVERA_C,
+                                                    muvera=mu)
+            torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        mv_launches = {**fs.LAUNCHES, **ms.LAUNCHES}
+        assert mv_launches["stage_gmin_scan"] > 0, mv_launches
+        assert muvera_fde.ROUTES["fused"] == routes["fused"] + 1, muvera_fde.ROUTES
+        assert fs.ROUTES["stage_gmin_scan"] == {"direct": mv_launches["stage_gmin_scan"],
+                                                "padded": 0}, fs.ROUTES
+        assert col.host_routes == 0
+        fde16, fde_xsq, fde_bias = cache_fde = col._scan_cache().fde(cfg)
+        qtok, qmask = col._pad_query_sets(qsets)
+        qfde = muvera_fde.encode_query_sets_host([qtok[i][qmask[i]] for i in range(MV_B)], cfg)
+        qfde_dev = torch.from_numpy(qfde).to(dev)
+        cand = muvera_fde.fde_candidates(*cache_fde, qfde_dev, count=MUVERA_C)[0].cpu().numpy()
+        # the oracle: K5 selects at the block's bf16 precision (the query
+        # FDE rounded to bf16 too), so float64 dots of those values
+        fde64 = fde16.float().cpu().numpy().astype(np.float64)
+        dots = bf16_round(torch, qfde).astype(np.float64) @ fde64.T
+        dots[:, np.isinf(fde_bias.cpu().numpy())] = -np.inf
+        cswaps = 0
+        for b in range(MV_B):
+            kth = np.sort(dots[b])[::-1][MUVERA_C - 1]
+            diff = set(cand[b].tolist()) ^ set(np.flatnonzero(dots[b] >= kth).tolist())
+            assert all(abs(dots[b, s] - kth) <= 1e-5 * max(1.0, abs(kth)) for s in diff), \
+                f"MUVERA candidates of set {b} differ from the f64 top {MUVERA_C}"
+            cswaps += len(diff) // 2
+        mswaps = sum(check_hits([(r.id, r.score) for r in row],
+                                maxsim_subset_oracle(tokens, cand[b], qsets[b], ids, 10), 10)
+                     for b, row in enumerate(fde_got))
+        ms_batch = host_ms(torch, lambda: col.multi_vector_search_batch(
+            qsets, limit=10, candidates=MUVERA_C, muvera=mu), reps=3)
+        fde_overlap = float(np.mean([len({r.id for r in row} & set(e)) / 10
+                                     for row, e in zip(fde_got, exact)]))
+        width = fde16.shape[1]
+        path_errs, path_rels = calls.check(torch, f"6b MUVERA {label}", card)
+        assert set(path_errs) == {"stage_gmin_scan", "extract_group_rows"}, path_errs
+        del calls
+        out["muvera"][label] = {"width": width, "first_s": first, "ms": ms_batch,
+                                "overlap": fde_overlap, "launches": mv_launches,
+                                "errs": path_errs, "rels": path_rels}
+        log(f"  MUVERA ({label} config, FDE block [{fde16.shape[0]}, {width}] bf16), "
+            f"candidates {MUVERA_C}, B={MV_B} limit 10: first call {first:.2f}s (the device FDE "
+            f"encode), then {ms_batch:.3f} ms per batch; K5 on the fused route, operand routes "
+            f"{fs.ROUTES['stage_gmin_scan']}; candidates equal the f64 top {MUVERA_C} by FDE dot "
+            f"over "
+            f"the card's bf16 block ({cswaps} near-tie swaps); results equal the f64 MaxSim "
+            f"oracle over them ({mswaps} near-tie swaps); overlap@10 against exact MaxSim "
+            f"{fde_overlap:.4f}; launches {mv_launches} {card}")
+        if label == "2048":
+            # K5 alone at the FDE shape, against its plain version
+            def k5():
+                return fs.stage_gmin_scan(fde16, fde_xsq, fde_bias, qfde_dev,
+                                          metric="inner_product", dims=width)
+
+            def plain():
+                return fs._stage_gmin_scan_ref(fde16, fde_xsq, fde_bias, qfde_dev,
+                                               metric="inner_product", dims=width)
+
+            err, rel = 0.0, 0.0
+            for g, w in zip(k5()[:2], plain()):
+                a, e = abs_rel_err(g, w)
+                err, rel = max(err, a), max(rel, e)
+            assert rel <= MV_RTOL["bf16"], f"K5 at the FDE shape: rel err {rel}"
+            n = fde16.shape[0]
+            out["k5_fde"] = {
+                "launches": mv_launches["stage_gmin_scan"], "err": err, "rel": rel,
+                "ms": cuda_ms(torch, k5), "plain_ms": cuda_ms(torch, plain, reps=3),
+                # bf16 products; the block, its norms and biases and the bf16
+                # query read once, the ranks and group minima written once
+                "bound": bound(2 * n * width * MV_B, "bf16",
+                               2 * n * width + 8 * n + 2 * MV_B * width
+                               + 4 * MV_B * n + 4 * MV_B * (n // fs.GROUP))}
+            k = out["k5_fde"]
+            log(f"  K5 stage_gmin_scan at the FDE shape [{n}, {width}] bf16 x [{MV_B}, {width}] "
+                f"inner_product: abs err {err:.3g}, rel err {rel:.3g} (rtol {MV_RTOL['bf16']}), "
+                f"{k['ms']:.3f} ms vs plain {k['plain_ms']:.3f} ms; bound {k['bound'][0]:.4f} ms "
+                f"({k['bound'][1]}) {card}")
+        del fde16, fde_xsq, fde_bias, cache_fde, fde64, dots
+    return out
+
+
 def profile_runs(torch, runs, card, reps=3):
     """Traces ``reps`` calls of each run with ``torch.profiler`` and prints
     device-busy and wall ms per call, the device's idle share, and the
@@ -1318,9 +1760,19 @@ def main() -> int:
     adaptive_launches, funnel16_launches = adaptive_modes(torch, col, stored, queries, got,
                                                           card)
     del stored
-    del col
     torch.cuda.empty_cache()
     log(f"[phase 4b] configs 3 and 4 ({time.perf_counter() - t0:.1f}s)")
+
+    # ---- phase 4e: a flat hybrid on the same collection --------------------
+    t0 = time.perf_counter()
+    hybrid_launches, hybrid_ms, hybrid_busy, hybrid_wall, hybrid_errs = flat_hybrid(
+        torch, col, queries, card)
+    del col
+    torch.cuda.empty_cache()
+    log(f"[phase 4e] flat hybrid (funnel + quantized + search, exact rerank, batch {B_MAIN}): "
+        f"ids equal phase 4's exact results, host routes 0, {hybrid_ms:.3f} ms per sync batch "
+        f"(busy {hybrid_busy:.3f} ms, idle {max(0.0, 1 - hybrid_busy / hybrid_wall):.1%}) "
+        f"({time.perf_counter() - t0:.1f}s)")
 
     # ---- phase 4d: BASELINE config 2, HNSW on the same corpus -------------
     t0 = time.perf_counter()
@@ -1348,11 +1800,27 @@ def main() -> int:
 
     # ---- phase 6: BASELINE config 5, exact MaxSim --------------------------
     t0 = time.perf_counter()
-    mv_launches, ragged_launches, _ms_mv, _ms_mv_sync = maxsim_config5(torch, vt, rng, card)
+    mv_launches, _ms_mv, _ms_mv_sync, mv_state = maxsim_config5(torch, vt, rng, card)
+    ragged_launches = maxsim_ragged(torch, vt, rng, mv_state["sets"], card)
     log(f"[phase 6] config 5 exact MaxSim ({MV_N}x{MV_T}x{MV_D} bf16, {MV_SETS} sets of "
         f"{MV_Q}, limit 10, batch {MV_B}): ids equal the f64 oracle, ok all true, launches "
-        f"maxsim_rank_scan {mv_launches['maxsim_rank_scan']} "
+        f"maxsim_rank_scan {mv_launches['maxsim_rank_scan']}; the ragged f32 corpus "
         f"({time.perf_counter() - t0:.1f}s)")
+
+    # ---- phase 6b: config 5's hybrid, MMR and MUVERA on the same corpus ---
+    t0 = time.perf_counter()
+    c5 = hybrid_config5(torch, vt, mv_state, card)
+    mv_state["col"].close()
+    del mv_state
+    torch.cuda.empty_cache()
+    log(f"[phase 6b] config 5 hybrid (hnsw + quantized, {HYBRID_C} candidates each, MaxSim "
+        f"rerank, limit {HYBRID_LIMIT}, batch {MV_B}): equal to the f64 oracle over its "
+        f"candidate unions, "
+        f"{c5['hybrid_ms']:.3f} ms per sync batch (busy {c5['hybrid_busy']:.3f} ms), overlap@10 "
+        f"{c5['hybrid_overlap']:.4f}; MMR {c5['mmr_ms']:.3f} ms; MUVERA candidates {MUVERA_C}: "
+        + ", ".join(f"width {m['width']} {m['ms']:.3f} ms, overlap@10 {m['overlap']:.4f}"
+                    for m in c5["muvera"].values())
+        + f"; graph build {c5['build_s']:.1f}s ({time.perf_counter() - t0:.1f}s)")
 
     # bounds from this run's shapes: the cosine main configurations, config
     # 5's full bf16 and f32 blocks; K2 and K4 read the distinct selected rows
@@ -1399,13 +1867,46 @@ def main() -> int:
            mv_times["maxsim_rank_scan" + sfx]["ms"], mv_times["maxsim_rank_scan" + sfx]["plain_ms"],
            None, mv_times["maxsim_rank_scan" + sfx]["bound"])
           for sfx, counts in (("", mv_launches), ("_f32", ragged_launches))),
+        # K5 as MUVERA's candidate scan: the 2,048-wide bf16 FDE block
+        ("stage_gmin_scan_fde", "adaptive_scan.cu", "flat_scan.py:380",
+         {"stage_gmin_scan_fde": c5["k5_fde"]["launches"]}, c5["k5_fde"]["ms"],
+         c5["k5_fde"]["plain_ms"], None, c5["k5_fde"]["bound"]),
     ]
+    # K5 on the FDE block is held to a relative tolerance, on MUVERA's
+    # calls as alone
+    errs["stage_gmin_scan_fde"] = c5["k5_fde"]["err"]
+    rel_errs["stage_gmin_scan_fde"] = max([c5["k5_fde"]["rel"], *(
+        m["rels"]["stage_gmin_scan"] for m in c5["muvera"].values())])
+    # each kernel's launches on this slice's paths and its max abs error
+    # against its plain version at the shapes they gave it, under the rows
+    # of the storage each path scans: 4e's block is f32, MUVERA's FDE block
+    # bf16
+    new_paths = {
+        "4e flat hybrid": (hybrid_launches, hybrid_errs, (
+            "gmin_scan", "rescore", "stage_gmin_scan", "sign_scan", "extract_group_rows")),
+        "6b hybrid": (c5["hybrid_launches"], c5["hybrid_errs"],
+                      ("sign_scan", "extract_group_rows")),
+        **{f"6b MUVERA {k}": (m["launches"], m["errs"],
+                              ("stage_gmin_scan_fde", "extract_group_rows"))
+           for k, m in c5["muvera"].items()}}
+
+    def base(name):
+        return name.removesuffix("_bf16").removesuffix("_f32").removesuffix("_fde")
+
+    def path_errs(name):
+        return {path: path_e[base(name)] for path, (_l, path_e, path_rows) in new_paths.items()
+                if name in path_rows}
+
     kernels = [
         {"name": name, "route": "cuda", "source": f"vettore_tpu_torch/csrc/{src}",
          "replaces": f"vettore_tpu/ops/{tpu}",
-         "launches": counts[name.removesuffix("_bf16").removesuffix("_f32")],
-         "max_abs_err": errs[name], "max_rel_err": rel_errs.get(name), "ms": k_ms,
-         "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
+         "launches": counts[name] if name in counts else counts[base(name)],
+         "max_abs_err": max([errs[name], *path_errs(name).values()]),
+         "max_rel_err": rel_errs.get(name), "ms": k_ms,
+         "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+         "launches_on_new_paths": {path: launches[base(name)] if name in path_rows else 0
+                                   for path, (launches, _e, path_rows) in new_paths.items()},
+         "max_abs_err_on_new_paths": path_errs(name)}
         for name, src, tpu, counts, k_ms, plain_ms, lib_ms, bnd in rows
     ]
     for k in kernels:  # K7's kernel alone, beside its wrapper's time

@@ -117,9 +117,6 @@ def test_unported_features_raise():
         tvt.Collection(dimensions=4, compressed=True, device="cpu")
     with pytest.raises(errors.InvalidIndex, match="not ported"):
         tvt.Collection(dimensions=4, mesh=object(), device="cpu")
-    col = tvt.Collection(dimensions=4, device="cpu")
-    with pytest.raises(errors.InvalidIndex, match="not ported"):
-        col.hybrid_search([1.0, 0.0, 0.0, 0.0])
     with pytest.raises(errors.InvalidFlatOptions, match="unknown storage"):
         TFlat("cosine", storage="int4", device="cpu")
 

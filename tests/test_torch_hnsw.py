@@ -273,14 +273,6 @@ def test_chunks_do_not_change_results(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def test_graph_files_are_not_ported_yet(tmp_path):
-    index = thnsw.HnswIndex("cosine", PARAMS, device="cpu")
-    with pytest.raises(terr.InvalidIndex, match="not ported yet"):
-        index.save_graph(str(tmp_path / "g.npz"))
-    with pytest.raises(terr.InvalidIndex, match="not ported yet"):
-        thnsw.HnswIndex.load_graph("cosine", PARAMS, str(tmp_path / "g.npz"))
-
-
 def test_wave_build_is_not_ported_yet():
     data = _unit(np.random.default_rng(17), 64, 8)
     for options in ({**PARAMS, "build": "wave"}, PARAMS):  # auto below KNN_BUILD_MIN: wave

@@ -12,15 +12,21 @@ PORT_MODULES = (
     "vettore_tpu_torch._build",
     "vettore_tpu_torch.collection",
     "vettore_tpu_torch.convert",
+    "vettore_tpu_torch.distance",
     "vettore_tpu_torch.index.flat",
     "vettore_tpu_torch.index.hnsw",
     "vettore_tpu_torch.index.hnsw_build",
     "vettore_tpu_torch.index.hnsw_device",
     "vettore_tpu_torch.index.hnsw_knn_build",
+    "vettore_tpu_torch.multi_vector",
+    "vettore_tpu_torch.muvera",
     "vettore_tpu_torch.observability",
     "vettore_tpu_torch.ops.distance",
     "vettore_tpu_torch.ops.flat_scan",
     "vettore_tpu_torch.ops.maxsim",
+    "vettore_tpu_torch.ops.mmr",
+    "vettore_tpu_torch.ops.muvera",
+    "vettore_tpu_torch.ops.muvera_fde",
     "vettore_tpu_torch.ops.packing",
     "vettore_tpu_torch.ops.pipeline",
     "vettore_tpu_torch.ops.scan_host",

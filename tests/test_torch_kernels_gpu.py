@@ -1016,3 +1016,78 @@ def test_hnsw_knn_build_on_card(cuda):
     for row in hits:  # (rank, id) order; the raw scores are a second f32 sum
         assert all(ra >= rb - 1e-6 and (ra != rb or ia < ib)
                    for (ia, ra), (ib, rb) in zip(row, row[1:]))
+
+
+def _fde_operands(n, b, device, width=2048, seed=21):
+    """A bf16 FDE-like block (rows of unit scale over ``width`` columns, the
+    last 37 rows dead) and f32 query FDEs."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, width)) / np.sqrt(width)).astype(np.float32)
+    x[-37:] = 0.0
+    bias = np.zeros(n, np.float32)
+    bias[-37:] = np.inf
+    q = rng.normal(size=(b, width)).astype(np.float32)
+    xt = torch.from_numpy(x).to(device).to(torch.bfloat16)
+    xsq = (xt.float() ** 2).sum(dim=1)
+    return xt, xsq, torch.from_numpy(bias).to(device), torch.from_numpy(q).to(device)
+
+
+@pytest.mark.parametrize("b", [64, 5])
+def test_stage_gmin_scan_at_the_fde_shape(cuda, b):
+    """K5 as MUVERA's candidate scan runs it: a bf16 block read over all of
+    its 2,048 columns, inner product."""
+    x, xsq, bias, q = _fde_operands(8192, b, cuda)
+    before = fs.LAUNCHES["stage_gmin_scan"], dict(fs.ROUTES["stage_gmin_scan"])
+    gmin, rank, bounded = fs.stage_gmin_scan(x, xsq, bias, q, metric="inner_product",
+                                             dims=2048)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["stage_gmin_scan"] == before[0] + 1
+    assert fs.ROUTES["stage_gmin_scan"]["direct"] == before[1]["direct"] + 1
+    assert bool(bounded)
+    want_gmin, want_rank = fs._stage_gmin_scan_ref(x, xsq, bias, q, metric="inner_product",
+                                                   dims=2048)
+    _assert_close_with_inf(gmin, want_gmin, GMIN_ATOL["bf16"])
+    _assert_close_with_inf(rank, want_rank, GMIN_ATOL["bf16"])
+
+
+def test_fde_candidates_on_card_match_cpu(cuda):
+    """``muvera_fde.fde_candidates`` at MUVERA's count of 512 takes K5 on the
+    card and selects the CPU's slots (the plain versions' selection)."""
+    from vettore_tpu_torch.ops import muvera_fde
+
+    x, xsq, bias, q = _fde_operands(16384, 64, cuda)
+    before = muvera_fde.ROUTES["fused"]
+    got, ok = muvera_fde.fde_candidates(x, xsq, bias, q, count=512)
+    want, want_ok = muvera_fde.fde_candidates(x.cpu(), xsq.cpu(), bias.cpu(), q.cpu(),
+                                              count=512)
+    assert muvera_fde.ROUTES["fused"] == before + 2
+    assert bool(ok.all()) and bool(want_ok.all())
+    # a candidate may trade places only with one whose FDE dot (float64)
+    # lies within 1e-4 of the selection's boundary: K5 sums its bf16
+    # products in another order than the plain version
+    dots = q.double().cpu() @ x.double().cpu().T
+    for row, g, w in zip(dots, got.cpu().tolist(), want.tolist()):
+        edge = row[w[-1]].item()
+        assert all(abs(row[s].item() - edge) < 1e-4 for s in set(g) ^ set(w))
+
+
+def test_mmr_on_card_matches_the_host_loop(cuda):
+    """The batched MMR on the card (pair similarities in full f32, the
+    greedy loop on [B, k] tensors) against the float64 host loop, query
+    scores spread wide enough that f32 pair noise cannot reorder them."""
+    from vettore_tpu_torch.ops import mmr
+
+    rng = np.random.default_rng(22)
+    b, k, d = 16, 30, 128
+    vecs = rng.normal(size=(b, k, d)).astype(np.float32)
+    lists = [[(f"q{i}-{j}", float(10.0 * s)) for j, s in enumerate(rng.normal(size=k))]
+             for i in range(b)]
+    for metric in ("cosine", "l2", "inner_product"):
+        got = mmr.mmr_rerank_batch(lists, torch.from_numpy(vecs).to(cuda), metric=metric,
+                                   alpha=0.5, final_k=10, device=cuda)
+        cpu = mmr.mmr_rerank_batch(lists, vecs, metric=metric, alpha=0.5, final_k=10,
+                                   device="cpu")
+        assert got == cpu
+        for i in range(b):
+            pool = [(lists[i][j][0], [float(v) for v in vecs[i, j]]) for j in range(k)]
+            assert got[i] == mmr.mmr_rerank(lists[i], pool, metric, 0.5, 10)

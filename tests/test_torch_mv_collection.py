@@ -219,18 +219,6 @@ def test_overflowing_scores_take_the_host_route():
     assert _hits(got) == _hits(want)
 
 
-def test_muvera_and_hybrid_raise_not_ported():
-    col = tvt.Collection(dimensions=4, device="cpu")
-    col.put_many([{"id": "a", "vectors": [[1.0, 0.0, 0.0, 0.0]]}])
-    for kwargs in ({"candidates": 10}, {"muvera": {"k_sim": 2}}):
-        with pytest.raises(tvt.errors.InvalidIndex, match="not ported"):
-            col.multi_vector_search([[1.0, 0.0, 0.0, 0.0]], **kwargs)
-        with pytest.raises(tvt.errors.InvalidIndex, match="not ported"):
-            col.multi_vector_search_batch([[[1.0, 0.0, 0.0, 0.0]]], **kwargs)
-    with pytest.raises(tvt.errors.InvalidIndex, match="not ported"):
-        col.hybrid_search([1.0, 0.0, 0.0, 0.0])
-
-
 def test_put_tokens_validation_matches_jax():
     errors = []
     for col in _pair("l2", d=8):

@@ -2,8 +2,9 @@
 
 The port of the JAX package ``vettore_tpu`` (which stays the reference) to
 PyTorch, with hand-written CUDA kernels for the scans. It has the same public
-API for the slices ported so far — ``Collection`` with the exact flat index,
-f32 and bf16 storage, the funnel and quantized search modes, snapshots — and
+API for the slices ported so far — ``Collection`` with the exact flat and
+HNSW indexes, f32, bf16 and int8 storage, the funnel, quantized,
+multi-vector (exact and MUVERA) and hybrid search modes, MMR, snapshots — and
 returns the same results, including the ``(rank, id)`` tie order. The device is explicit: ``device="cuda"`` (the
 default) needs a CUDA device; pass ``device="cpu"`` to run on the CPU.
 
@@ -21,10 +22,11 @@ Quick start::
     funnel = col.funnel_search([1.0, 0.0, 0.0], stages=[2, 3], limit=1)
 """
 
-from . import errors, observability
+from . import distance, errors, multi_vector, muvera, observability
 from .collection import Collection, load_snapshot
 from .embedding import Embedding, Result
 from .index.flat import FlatIndex
+from .index.hnsw import HnswIndex
 from .metrics import METRICS, metric_code, normalize_metric, result_values
 from .ops.scan_host import binary_top_k, vector_top_k
 from .store.memory import MemoryStore
@@ -37,6 +39,7 @@ __all__ = [
     "Embedding",
     "Result",
     "FlatIndex",
+    "HnswIndex",
     "MemoryStore",
     "METRICS",
     "metric_code",
@@ -44,6 +47,9 @@ __all__ = [
     "result_values",
     "vector_top_k",
     "binary_top_k",
+    "distance",
+    "multi_vector",
+    "muvera",
     "observability",
     "errors",
     "__version__",

@@ -9,16 +9,19 @@ is always rebuildable from the store. Search modes:
 * ``search``              — exact flat scan
 * ``funnel_search``       — Matryoshka prefix staging + exact rerank
 * ``quantized_search``    — sign-bit Hamming candidates + exact rerank
-* ``multi_vector_search`` — ColBERT MaxSim late interaction over token sets
+* ``multi_vector_search`` — ColBERT MaxSim late interaction over token sets,
+  exact or over MUVERA FDE candidates (``candidates=`` / ``muvera=``)
+* ``hybrid_search``       — a union of candidate generators (funnel,
+  quantized, the index's search, the HNSW beam) + an exact or MaxSim rerank
 
 The index is the exact flat index (``index="flat"``) or the HNSW graph
 (``index="hnsw"``: host inserts, and the kNN bulk build and batched beam
-search on the collection's device, ``index/hnsw*.py``).
+search on the collection's device, ``index/hnsw*.py``); ``attach_index``
+swaps in a prebuilt one (e.g. a graph from ``HnswIndex.load_graph``).
 
-Not ported yet: the IVF index, mesh sharding, ``compressed=True`` (it needs
-the columnar store), the hybrid search modes, ``attach_index``, and MUVERA
-candidate generation (``candidates=`` / ``muvera=`` of the multi-vector
-search). Asking for any of them raises with a message that says so.
+Not ported yet: the IVF index, mesh sharding and ``compressed=True`` (it
+needs the columnar store). Asking for any of them raises with a message that
+says so.
 
 Option validation is strict (unknown/duplicate options rejected,
 collection.ex:1116-1157); score/distance semantics follow
@@ -37,7 +40,7 @@ import torch
 from . import errors as E
 from .embedding import Embedding, Result
 from .index.base import Index, valid_index
-from .index.flat import FlatIndex, resolve_device
+from .index.flat import _ROW_TILE, FlatIndex, resolve_device
 from .index.hnsw import HnswIndex
 from .metrics import (
     F32_MAX,
@@ -50,21 +53,16 @@ from .metrics import (
 from .observability import StatsRegistry, observed
 from .ops import flat_scan, scan_host
 from .ops import maxsim as maxsim_ops
+from .ops import muvera_fde
 from .ops import pipeline as pipe
 from .ops.distance import NORMALIZATIONS, normalize_rows, validate_vector
 from .ops.packing import pack_signs_u32, pack_signs_u64_rows, words_for
+from .ops.pipeline import _BIG32
 from .store.base import Store, valid_store
 from .store.memory import MemoryStore
 
 SNAPSHOT_VERSION = 1
 _SCORE_MODES = ("raw", "similarity")
-
-#: methods of the JAX package's Collection that this package does not have yet
-_NOT_PORTED_MODES = (
-    "hybrid_search",
-    "hybrid_search_batch",
-    "attach_index",
-)
 
 
 def _validate_limit(limit):
@@ -99,9 +97,6 @@ def _default_candidates(candidates, limit):
         candidates = max(limit * 10, limit)
     _validate_candidates(candidates, limit)
     return candidates
-
-
-_ROW_TILE = 1024
 
 
 def _pow2_at_least(n: int, floor: int = 8) -> int:
@@ -175,6 +170,18 @@ class _VectorCache:
         self._stage_xsq = {}
         self._mv = None
         self._mv_norms = None
+        #: derived device tables: FDE blocks by config, index slot tables
+        self._tables = {}
+        self._ids_np = None
+        self._slot_of = None
+
+    @property
+    def slot_of(self) -> dict:
+        """Cache slot of each id (lazy: only the hybrid's host union reads
+        it)."""
+        if self._slot_of is None:
+            self._slot_of = {id: i for i, id in enumerate(self.ids)}
+        return self._slot_of
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -384,6 +391,52 @@ class _VectorCache:
             self._stage_xsq[dims] = _prefix_xsq(x, dims=dims)
         return self._stage_xsq[dims]
 
+    def fde(self, cfg):
+        """Device MUVERA document-FDE block for candidate generation:
+        ``(fde [cap, W] bf16, xsq [cap] f32, bias [cap] f32)`` — encoded on
+        the device from the token block (``ops/muvera_fde``), built once per
+        cache generation and config. bf16 halves the block (a 1M x 2048 FDE
+        block is ~4 GB next to the token block)."""
+        key = ("fde", muvera_fde.config_key(cfg))
+        if key not in self._tables:
+            tokens, counts = self.multi_vectors()
+            fde16 = muvera_fde.encode_documents_device(tokens, counts, cfg,
+                                                       out_dtype=torch.bfloat16)
+            xsq = muvera_fde.block_sq_norms(fde16)
+            bias = torch.where(self.valid_mask(), 0.0, float("inf")).float()
+            self._tables[key] = (fde16, xsq, bias)
+        return self._tables[key]
+
+    def index_slot_table(self, index):
+        """Device int32 table mapping an index's internal slots to cache
+        (lex) slots, ``2**31 - 1`` where an index slot's id is not in the
+        cache — it keeps the hybrid's index generators on the device.
+        ``None`` for a custom index without a device slot vocabulary. An
+        HNSW index's table reads its device graph's ids, so callers run the
+        index's device search (which refreshes that graph) first."""
+        key = ("slots", id(index))
+        if key in self._tables:
+            return self._tables[key]
+        if isinstance(index, FlatIndex):
+            index_ids = index._ids
+        else:
+            graph = getattr(index, "_bulk", None) or getattr(index, "_device", None)
+            index_ids = getattr(graph, "ids", None)
+        if index_ids is None:
+            self._tables[key] = None
+            return None
+        if self._ids_np is None:
+            self._ids_np = np.asarray(self.ids, dtype=str)
+        src = np.asarray([i if isinstance(i, str) else "" for i in index_ids], dtype=str)
+        if self.n:
+            pos = np.searchsorted(self._ids_np, src)
+            posc = np.clip(pos, 0, self.n - 1)
+            table = np.where(self._ids_np[posc] == src, posc, _BIG32).astype(np.int32)
+        else:
+            table = np.full(len(src), _BIG32, dtype=np.int32)
+        self._tables[key] = self._put(table)
+        return self._tables[key]
+
 
 class Collection:
     """One vector collection: canonical host store + device flat index.
@@ -536,6 +589,40 @@ class Collection:
     @property
     def index(self) -> Index:
         return self._index
+
+    def attach_index(self, index) -> None:
+        """Expert API: swaps in a prebuilt acceleration index for the SAME
+        record set — e.g. a graph saved by ``HnswIndex.save_graph`` and
+        reloaded with ``HnswIndex.load_graph`` (a warm start that skips the
+        bulk build). The canonical store is untouched; the index must hold
+        exactly the collection's records, and a port index must live on the
+        collection's device. The attached index sets ``index_kind`` (an HNSW
+        graph over a flat-ingested collection enables the ``hnsw`` hybrid
+        generator)."""
+        if not valid_index(index):
+            raise E.InvalidIndex(f"invalid index: {index!r}")
+        with self._write_lock:
+            self.ensure_open()
+            n = self.count()
+            try:
+                index_n = len(index)
+            except TypeError:
+                index_n = n  # custom index without __len__: the caller's contract
+            if index_n != n:
+                raise E.InvalidIndex(
+                    f"attached index holds {index_n} records, collection has {n}")
+            device = torch.device(getattr(index, "device", self.device))
+            if device.type != self.device.type:
+                raise E.InvalidIndex(
+                    f"attached index lives on {device}, the collection on {self.device}")
+            self._index = index
+            if isinstance(index, FlatIndex):
+                self.index_kind = "flat"
+            elif isinstance(index, HnswIndex):
+                self.index_kind = "hnsw"
+            else:
+                self.index_kind = "custom"
+            self._bump()
 
     def _bump(self):
         self._version += 1
@@ -1137,16 +1224,26 @@ class Collection:
 
     def _funnel_host(self, cache, q, stages, candidates, limit):
         self.host_routes += 1
+        return self._rank_host(cache, q, self._funnel_host_ids(cache, q, stages, candidates),
+                               limit)
+
+    def _quantized_host(self, cache, q, candidates, limit):
+        self.host_routes += 1
+        return self._rank_host(cache, q, self._quantized_host_ids(cache, q, candidates), limit)
+
+    def _funnel_host_ids(self, cache, q, stages, candidates):
+        """The funnel's candidate ids by the float64 host scan: each stage
+        keeps the best ``candidates`` by its prefix."""
         pairs = [(r.id, np.asarray(r.vector)) for r in cache.records]
         for dims in stages:
             hits = scan_host.vector_top_k(pairs, q, self.metric, dims, candidates)
             by_id = dict(pairs)
             pairs = [(id, by_id[id]) for id, _ in hits]
-        hits = scan_host.vector_top_k(pairs, q, self.metric, self.dimensions, limit)
-        return [self._to_result(cache.by_id[id], raw) for id, raw in hits]
+        return [id for id, _ in pairs]
 
-    def _quantized_host(self, cache, q, candidates, limit):
-        self.host_routes += 1
+    def _quantized_host_ids(self, cache, q, candidates):
+        """The quantized mode's candidate ids by the host's packed Hamming
+        scan."""
         qwords = [int(w) for w in pack_signs_u64_rows(q[None, :])[0]]
         pairs = []
         for r in cache.records:
@@ -1154,20 +1251,19 @@ class Collection:
                 int(w) for w in pack_signs_u64_rows(np.asarray(r.vector, np.float64)[None, :])[0]
             ]
             pairs.append((r.id, words))
-        hits = scan_host.binary_top_k(pairs, qwords, self.dimensions, candidates)
-        survivors = [(id, np.asarray(cache.by_id[id].vector)) for id, _ in hits]
-        final = scan_host.vector_top_k(survivors, q, self.metric, self.dimensions, limit)
-        return [self._to_result(cache.by_id[id], raw) for id, raw in final]
+        return [id for id, _ in scan_host.binary_top_k(pairs, qwords, self.dimensions,
+                                                       candidates)]
+
+    def _rank_host(self, cache, q, ids, limit):
+        """The top ``limit`` of the records ``ids`` by the float64 host rank
+        over every dimension."""
+        pairs = [(id, np.asarray(cache.by_id[id].vector)) for id in ids]
+        hits = scan_host.vector_top_k(pairs, q, self.metric, self.dimensions, limit)
+        return [self._to_result(cache.by_id[id], raw) for id, raw in hits]
 
     # ------------------------------------------------------------------
     # multi-vector MaxSim (collection.ex:311-323,742-760)
     # ------------------------------------------------------------------
-
-    @staticmethod
-    def _refuse_muvera(candidates, muvera):
-        if candidates is not None or muvera is not None:
-            raise E.InvalidIndex("MUVERA candidate generation (candidates=, muvera=) is not "
-                                 "ported yet")
 
     @observed("multi_vector_search")
     def multi_vector_search(self, query_vectors, *, limit=10, metric=None,
@@ -1176,6 +1272,12 @@ class Collection:
         (collection.ex:311-323,742-760): each query vector takes its best
         token similarity in a record, and the record's score is the sum.
         Records without ``vectors`` score through their primary vector.
+
+        ``candidates``: route through the MUVERA FDE candidate generator
+        (document FDEs encoded on the device from the token block) and
+        rerank only the top ``candidates`` docs by exact MaxSim; ``muvera``
+        optionally overrides the FDE config (the keys of the public
+        encoders). Omitted: the exact full scan.
 
         >>> import vettore_tpu_torch as vt
         >>> col = vt.Collection(name="doc-mv", dimensions=2, metric="cosine",
@@ -1197,17 +1299,19 @@ class Collection:
             raise E.InvalidMetric(f"invalid metric: {metric!r}")
         self.ensure_open()
         self._prepare_query_vectors(query_vectors)
-        self._refuse_muvera(candidates, muvera)
         # a batch of one: the same device scan (the MaxSim kernel for the
         # dot metrics) as multi_vector_search_batch
-        return self._multi_vector_scan([query_vectors], limit=limit, metric=metric)[0]
+        fde_cfg = self._fde_config(candidates, muvera, metric)
+        return self._multi_vector_sets([query_vectors], limit=limit, metric=metric,
+                                       candidates=candidates, fde_cfg=fde_cfg)[0]
 
-    def _multi_vector_host(self, cache, queries, metric, limit):
-        """The float64 host MaxSim (multi_vector.rs), for queries whose
-        device scores overflowed f32."""
+    def _multi_vector_host(self, cache, queries, metric, limit, ids=None):
+        """The float64 host MaxSim (multi_vector.rs) over every record, or
+        over the records ``ids``, for queries whose device scores overflowed
+        f32."""
         self.host_routes += 1
         documents = []
-        for r in cache.records:
+        for r in cache.records if ids is None else (cache.by_id[id] for id in ids):
             vs = r.vectors if _has_tokens(r.vectors) else [r.vector]
             documents.append((r.id, [list(np.asarray(v, np.float64)) for v in vs]))
         hits = maxsim_ops.top_k(documents, [list(q) for q in queries], metric, limit)
@@ -1245,46 +1349,388 @@ class Collection:
         per batch element (ragged ok), one device scan for the whole batch.
         Dot-family metrics run the fused MaxSim kernel
         (``ops/maxsim.fused_maxsim_topk_batch``); the other metrics the
-        chunked plain scan (``maxsim_full_topk_batch``)."""
+        chunked plain scan (``maxsim_full_topk_batch``).
+
+        ``candidates`` / ``muvera``: MUVERA FDE candidate generation and an
+        exact subset rerank (see :meth:`multi_vector_search`); ``candidates``
+        at least the record count is the exact scan by definition."""
         _reject_extra(extra)
         _validate_limit(limit)
         metric = normalize_metric(metric) if metric is not None else self.metric
         if metric not in METRICS:
             raise E.InvalidMetric(f"invalid metric: {metric!r}")
-        self._refuse_muvera(candidates, muvera)
+        fde_cfg = self._fde_config(candidates, muvera, metric)
         self.ensure_open()
         if not isinstance(query_sets, (list, tuple)):
             raise E.InvalidMultiVector("invalid multi vector")
         if len(query_sets) == 0:
             return []
-        return self._multi_vector_scan(query_sets, limit=limit, metric=metric)
+        return self._multi_vector_sets(query_sets, limit=limit, metric=metric,
+                                       candidates=candidates, fde_cfg=fde_cfg)
 
-    def _multi_vector_scan(self, query_sets, *, limit, metric) -> list:
-        """One device MaxSim scan of every doc for a non-empty batch of query
-        token sets: the fused kernel path for the dot metrics, the chunked
-        plain scan for the others; a set whose scores overflowed f32 takes
-        the float64 host path."""
+    def _multi_vector_sets(self, query_sets, *, limit, metric, candidates, fde_cfg) -> list:
+        """MaxSim search of a non-empty batch of query token sets: over MUVERA
+        candidates when ``fde_cfg`` is set and ``candidates`` is below the
+        record count, else the full scan."""
         qtok, qmask = self._pad_query_sets(query_sets)
         cache = self._scan_cache()
         if cache.n == 0:
             return [[] for _ in query_sets]
-        tokens, counts = cache.multi_vectors()
-        valid = cache.valid_mask()
         k = min(limit, cache.n)
-        qtok_t = self._query_tensor(qtok)
-        qmask_t = torch.from_numpy(qmask).to(self.device)
-        if maxsim_ops.supports_fused(metric, cache.cap, qtok.shape[1]):
-            out = maxsim_ops.fused_maxsim_topk_batch(
-                tokens, counts, valid, qtok_t, qmask_t, metric=metric, limit=k,
-                norms=cache.token_norms())
+        if fde_cfg is not None and candidates < cache.n:
+            out = self._mv_fde_pipeline(cache, qtok, qmask, metric=metric,
+                                        candidates=candidates, cfg=fde_cfg, k=k)
         else:
-            out = maxsim_ops.maxsim_full_topk_batch(
-                tokens, counts, valid, qtok_t, qmask_t, metric=metric, limit=k,
-                chunk=_mv_chunk(cache.cap, qtok.shape[0], qtok.shape[1], tokens.shape[1]))
+            out = self._mv_full_scan(cache, qtok, qmask, metric=metric, k=k)
         slots, scores, ok = (t.cpu().numpy() for t in out)
         return [self._mv_slots_to_results(cache, slots[b], scores[b], metric) if ok[b]
                 else self._multi_vector_host(cache, qtok[b][qmask[b]], metric, limit)
                 for b in range(len(query_sets))]
+
+    def _fde_config(self, candidates, muvera, metric):
+        """The validated MUVERA config of a multi-vector search, or None for
+        the exact scan."""
+        if candidates is None:
+            if muvera is not None:
+                raise E.InvalidMuveraConfig("muvera config requires candidates")
+            return None
+        if not isinstance(candidates, int) or isinstance(candidates, bool) or candidates <= 0:
+            raise E.InvalidCandidates(candidates)
+        if metric not in muvera_fde.FDE_METRICS:
+            raise E.InvalidMuveraConfig(
+                f"muvera candidate generation requires a dot-family metric, got {metric!r}")
+        return muvera_fde.normalize_config(muvera, self.dimensions)
+
+    def _mv_fde_pipeline(self, cache, qtok, qmask, *, metric, candidates, cfg, k):
+        """MUVERA candidate generation + exact subset rerank: bit-exact
+        host-encoded query FDEs (the public encoder, muvera.rs sum mode), one
+        device scan of the FDE block for the top-C slots (K5), then exact
+        MaxSim of the C winners ((score desc, slot asc) order). Returns
+        device ``(slots [B, k], scores [B, k], ok [B])``."""
+        tokens, counts = cache.multi_vectors()
+        fde16, fde_xsq, fde_bias = cache.fde(cfg)
+        # _pad_query_sets refuses empty sets: every row has live tokens
+        qfde = muvera_fde.encode_query_sets_host([qtok[i][qmask[i]] for i in range(len(qtok))],
+                                                 cfg)
+        c_eff = min(_pow2_at_least(candidates, 64), cache.cap)
+        cand_slots, cand_ok = muvera_fde.fde_candidates(
+            fde16, fde_xsq, fde_bias, self._query_tensor(qfde), count=c_eff)
+        slot_ok = cand_slots >= 0
+        # bound the [B, C, T, d] rerank gather by chunking the query batch
+        b = qtok.shape[0]
+        per_q = c_eff * tokens.shape[1] * tokens.shape[2] * tokens.element_size()
+        qchunk = max(1, min(b, (512 << 20) // max(per_q, 1)))
+        qtok_t = self._query_tensor(qtok)
+        qmask_t = torch.from_numpy(qmask).to(self.device)
+        parts = [maxsim_ops.maxsim_subset_topk_batch(
+            tokens, counts, cand_slots[s:s + qchunk].clamp_min(0), slot_ok[s:s + qchunk],
+            qtok_t[s:s + qchunk], qmask_t[s:s + qchunk], metric=metric, limit=k)
+            for s in range(0, b, qchunk)]
+        return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
+                torch.cat([p[2] for p in parts]) & cand_ok)
+
+    def _mv_full_scan(self, cache, qtok, qmask, *, metric, k):
+        """One device MaxSim scan of every doc for a batch of query token
+        sets: the fused kernel path for the dot metrics, the chunked plain
+        scan for the others. Returns device ``(slots, scores, ok)``; a set
+        whose ``ok`` is False (f32 overflow) takes the float64 host path."""
+        tokens, counts = cache.multi_vectors()
+        valid = cache.valid_mask()
+        qtok_t = self._query_tensor(qtok)
+        qmask_t = torch.from_numpy(qmask).to(self.device)
+        if maxsim_ops.supports_fused(metric, cache.cap, qtok.shape[1]):
+            return maxsim_ops.fused_maxsim_topk_batch(
+                tokens, counts, valid, qtok_t, qmask_t, metric=metric, limit=k,
+                norms=cache.token_norms())
+        return maxsim_ops.maxsim_full_topk_batch(
+            tokens, counts, valid, qtok_t, qmask_t, metric=metric, limit=k,
+            chunk=_mv_chunk(cache.cap, qtok.shape[0], qtok.shape[1], tokens.shape[1]))
+
+    # ------------------------------------------------------------------
+    # hybrid pipelines (collection.ex:337-348,516-658)
+    # ------------------------------------------------------------------
+
+    @observed("hybrid_search")
+    def hybrid_search(self, query, *, limit=10, generators=None, rerank="exact",
+                      **extra) -> list:
+        """Candidate-generator union + rerank (collection.ex:337-348,516-658).
+
+        ``generators`` names candidate generators, each a name or a
+        ``(name, options)`` pair: ``"funnel"`` (options ``candidates``,
+        ``stages``, ``dimensions``), ``"quantized"``, ``"search"`` (the
+        index's own search) and ``"hnsw"`` (an HNSW index's beam), each
+        with ``candidates`` (default ``10 * limit``). ``rerank`` is
+        ``"exact"`` or ``("multi_vector", query_vectors[, {"metric": m}])``.
+
+        >>> import vettore_tpu_torch as vt
+        >>> col = vt.Collection(name="doc-hybrid", dimensions=2,
+        ...                     metric="cosine", index="flat", device="cpu")
+        >>> col.put_many([{"id": "a", "vector": [1.0, 0.0]},
+        ...               {"id": "b", "vector": [0.0, 1.0]}])
+        >>> [r.id for r in col.hybrid_search([1.0, 0.2], limit=1,
+        ...                                  generators=["funnel", "quantized"])]
+        ['a']
+        """
+        _reject_extra(extra)
+        _validate_limit(limit)
+        if generators is None:
+            generators = self._default_generators()
+        if not isinstance(generators, (list, tuple)) or not generators:
+            raise E.InvalidGenerator(generators)
+        return self._hybrid_single(self.prepare_query(query), limit, generators, rerank)
+
+    def _default_generators(self) -> list:
+        """collection.ex:513-514: hnsw collections default to
+        [:hnsw, :quantized], everything else to [:funnel, :quantized]."""
+        if self.index_kind == "hnsw":
+            return ["hnsw", "quantized"]
+        return ["funnel", "quantized"]
+
+    def _hybrid_single(self, q, limit, generators, rerank) -> list:
+        """Single-query pipeline: each generator's candidates on the device,
+        the union by id on the host, then the rerank. Also the re-run of a
+        batch query that a batched generator or rerank flagged (it must not
+        re-enter the batch path)."""
+        cache = self._scan_cache()
+        candidate_ids: list = []
+        seen = set()
+        for gen in generators:
+            for id in self._run_generator(cache, q, gen, limit):
+                if id not in seen:
+                    seen.add(id)
+                    candidate_ids.append(id)
+        return self._hybrid_rerank(cache, q, candidate_ids, rerank, limit)
+
+    def _parse_generator(self, gen, limit):
+        """Validates one hybrid generator spec; returns (name, candidates,
+        stages) with stages only set for funnel (collection.ex:535-556)."""
+        if isinstance(gen, str):
+            name, opts = gen, {}
+        elif isinstance(gen, tuple) and len(gen) == 2 and isinstance(gen[0], str):
+            name, opts = gen[0], dict(gen[1])
+        else:
+            raise E.InvalidGenerator(gen)
+        allowed = {
+            "funnel": {"candidates", "stages", "dimensions"},
+            "quantized": {"candidates"},
+            "search": {"candidates"},
+            "hnsw": {"candidates"},
+        }.get(name)
+        if allowed is None:
+            raise E.UnknownGenerator(name)
+        for key in opts:
+            if key not in allowed:
+                raise E.UnsupportedOption(key)
+        candidates = opts.get("candidates", max(limit * 10, limit))
+        if (
+            not isinstance(candidates, int)
+            or isinstance(candidates, bool)
+            or candidates <= 0
+            or candidates > MAX_USIZE
+        ):
+            raise E.InvalidCandidates(f"invalid candidates: {candidates!r}")
+        stages = None
+        if name == "funnel":
+            stages = self._funnel_stages(opts.get("stages"), opts.get("dimensions"))
+        return name, candidates, stages
+
+    @staticmethod
+    def _mv_rerank_opts(rerank):
+        """``(metric or None, query sets)`` of a ``("multi_vector", sets[,
+        {"metric": m}])`` rerank; ``None`` for ``"exact"``."""
+        if isinstance(rerank, str) and rerank == "exact":
+            return None
+        if not (isinstance(rerank, tuple) and len(rerank) in (2, 3)
+                and rerank[0] == "multi_vector"):
+            raise E.InvalidRerank(rerank)
+        opts = dict(rerank[2]) if len(rerank) == 3 else {}
+        for key in opts:
+            if key != "metric":
+                raise E.UnsupportedOption(key)
+        return opts.get("metric"), rerank[1]
+
+    def _rerank_metric(self, metric):
+        metric = normalize_metric(metric if metric is not None else self.metric)
+        if metric not in METRICS:
+            raise E.InvalidMetric(f"invalid metric: {metric!r}")
+        return metric
+
+    @observed("hybrid_search_batch")
+    def hybrid_search_batch(self, queries, *, limit=10, generators=None,
+                            rerank="exact", **extra) -> list:
+        """Batched hybrid pipeline: each generator runs once on the device
+        for the whole query batch, the candidate union happens on the device
+        (sort + neighbour dedup, ``ops/pipeline.union_candidates``), and the
+        rerank (exact or MaxSim) is batched. With a ``multi_vector`` rerank,
+        pass one query token set per query: ``("multi_vector", [qset_0, ...,
+        qset_B-1])`` (+ an optional opts dict). Per query the results are
+        ``hybrid_search``'s; a query that a generator or the rerank flags
+        (overflow, tie spill) re-runs alone and counts in ``host_routes``."""
+        _reject_extra(extra)
+        _validate_limit(limit)
+        if generators is None:
+            generators = self._default_generators()
+        if not isinstance(generators, (list, tuple)) or not generators:
+            raise E.InvalidGenerator(generators)
+        parsed = [self._parse_generator(g, limit) for g in generators]
+        mv = self._mv_rerank_opts(rerank)
+        mv_metric = None if mv is None else self._rerank_metric(mv[0])
+        prepared = self._prepare_query_batch(queries)
+        b = prepared.shape[0]
+        if mv is not None and (not isinstance(mv[1], (list, tuple)) or len(mv[1]) != b):
+            raise E.InvalidMultiVector("multi_vector rerank needs one query token set per query")
+        cache = self._scan_cache()
+        if b == 0:
+            return []
+        if cache.n == 0:
+            return [[] for _ in range(b)]
+        qdev = self._query_tensor(prepared)
+        blocks = []
+        gen_ok = torch.ones(b, dtype=torch.bool, device=self.device)
+        for name, candidates, stages in parsed:
+            count = min(candidates, cache.n)
+            if name == "funnel":
+                x, valid = cache.vectors()
+                slots, slot_ok, g_ok = pipe.funnel_candidates_batch(
+                    x, valid, qdev, self._funnel_stage_xsq(cache, stages, count),
+                    metric=self.metric, stages=tuple(stages), count=count)
+            elif name == "quantized":
+                slots, slot_ok, g_ok = pipe.quantized_candidates_batch(
+                    cache.signs(), cache.valid_mask(), qdev, count=count, d=self.dimensions)
+            else:
+                blocks.append(self._index_candidates(cache, name, prepared, qdev, count))
+                continue
+            blocks.append(torch.where(slot_ok, slots, _BIG32))
+            gen_ok = gen_ok & g_ok
+        # one integer dtype for the union's sort (index slot tables are int32)
+        u_slots, u_ok = pipe.union_candidates(torch.cat([blk.long() for blk in blocks], dim=1))
+        k = min(limit, cache.n)
+
+        if mv is None:
+            x, _valid = cache.vectors()
+            top, raws, ranks, fin = (t.cpu().numpy() for t in pipe.rerank_batch(
+                x, u_slots, u_ok, qdev, metric=self.metric, limit=k))
+            ok = fin & gen_ok.cpu().numpy()
+            return [self._slots_to_results(cache, top[i], raws[i], ranks[i]) if ok[i]
+                    else self._hybrid_fallback(queries, i, limit, generators, rerank)
+                    for i in range(b)]
+
+        qsets = mv[1]
+        qtok, qmask = self._pad_query_sets(qsets)
+        tokens, counts = cache.multi_vectors()
+        # chunk the query batch so the [B, C, T, d] candidate gather stays
+        # bounded (~512 MB of f32)
+        per_q = max(1, u_slots.shape[1] * tokens.shape[1] * self.dimensions)
+        bs = max(1, (512 * 1024 * 1024 // 4) // per_q)
+        qtok_t = self._query_tensor(qtok)
+        qmask_t = torch.from_numpy(qmask).to(self.device)
+        parts = [maxsim_ops.maxsim_subset_topk_batch(
+            tokens, counts, u_slots[s:s + bs], u_ok[s:s + bs], qtok_t[s:s + bs],
+            qmask_t[s:s + bs], metric=mv_metric, limit=k) for s in range(0, b, bs)]
+        top, scores, mv_ok = (torch.cat([p[j] for p in parts]).cpu().numpy() for j in range(3))
+        ok = mv_ok & gen_ok.cpu().numpy()
+        return [self._mv_slots_to_results(cache, top[i], scores[i], mv_metric) if ok[i]
+                else self._hybrid_fallback(queries, i, limit, generators,
+                                           ("multi_vector", qsets[i]) + tuple(rerank[2:]))
+                for i in range(b)]
+
+    def _index_candidates(self, cache, name, prepared, qdev, count):
+        """The ``search`` / ``hnsw`` generator over the whole batch: the
+        index's device candidates mapped to cache slots through
+        ``index_slot_table`` (int32 slots, ``_BIG32`` pads); a custom index
+        without a device path is searched query by query."""
+        if name == "hnsw" and self.index_kind != "hnsw":
+            raise E.HnswIndexRequired("hnsw generator requires an hnsw index")
+        cand_dev = getattr(self._index, "candidate_slots_device", None)
+        table = None
+        if callable(cand_dev):
+            islots, iok = cand_dev(qdev, count)
+            # AFTER the device search: it refreshes the index's device graph
+            table = cache.index_slot_table(self._index)
+        if table is not None:
+            return torch.where(iok, table[islots.clamp(0, table.shape[0] - 1)], _BIG32)
+        rows = [[cache.slot_of[i] for i, _ in self._index.search(q, count) if i in cache.slot_of]
+                for q in prepared]
+        arr = np.full((len(rows), max([len(r) for r in rows] + [1])), _BIG32, np.int32)
+        for i, r in enumerate(rows):
+            arr[i, : len(r)] = r
+        return torch.from_numpy(arr).to(self.device)
+
+    def _hybrid_fallback(self, queries, b, limit, generators, rerank):
+        """Single-query re-run for a batch element whose batched device
+        pipeline was flagged (the f64-recovery posture, distances.rs:59-98);
+        it leaves the batched device path, so it counts in ``host_routes``."""
+        self.host_routes += 1
+        q = self.prepare_query(np.asarray(queries, dtype=np.float64)[b])
+        return self._hybrid_single(q, limit, generators, rerank)
+
+    def _run_generator(self, cache, q, gen, limit) -> list:
+        """One generator's candidate ids for one prepared query ``q``. A
+        funnel that overflows f32 or a quantized selection that spills its
+        tie slack scans on the host (counted in ``host_routes``)."""
+        name, candidates, stages = self._parse_generator(gen, limit)
+        if name in ("funnel", "quantized") and cache.n == 0:
+            return []
+        count = min(candidates, cache.n)
+        qt = self._query_tensor(q)
+        if name == "funnel":
+            x, valid = cache.vectors()
+            slots, ok, finite = (t.cpu().numpy() for t in pipe.funnel_candidates_pipeline(
+                x, valid, qt, self._funnel_stage_xsq(cache, stages, count),
+                metric=self.metric, stages=tuple(stages), count=count))
+            if finite:
+                return [cache.ids[int(s)] for s, o in zip(slots, ok) if o]
+            self.host_routes += 1
+            return self._funnel_host_ids(cache, q, stages, candidates)
+        if name == "quantized":
+            slots, ok, sel_ok = (t.cpu().numpy() for t in pipe.quantized_candidates_pipeline(
+                cache.signs(), cache.valid_mask(), qt, count=count, d=self.dimensions))
+            if sel_ok:
+                return [cache.ids[int(s)] for s, o in zip(slots, ok) if o]
+            # a tie spill past the selection slack: exact host candidates
+            self.host_routes += 1
+            return self._quantized_host_ids(cache, q, candidates)
+        if name == "hnsw" and self.index_kind != "hnsw":
+            raise E.HnswIndexRequired("hnsw generator requires an hnsw index")
+        # "search" / "hnsw": go through the collection's index
+        return [id for id, _ in self._index.search(q, candidates) if id in cache.slot_of]
+
+    def _hybrid_rerank(self, cache, q, candidate_ids, rerank, limit):
+        """The single-query rerank of a candidate id list: exact (full f32
+        over the candidates' rows) or MaxSim over their token sets; a rerank
+        that overflows f32 scores on the host in float64."""
+        mv = self._mv_rerank_opts(rerank)
+        if mv is not None:
+            metric = self._rerank_metric(mv[0])
+            queries = self._prepare_query_vectors(mv[1])
+        if not candidate_ids:
+            return []
+        # ascending slots ARE lex order (the cache is id-sorted), which the
+        # stable (rank, id) tie-break requires
+        slots = np.array(sorted(cache.slot_of[id] for id in candidate_ids), dtype=np.int64)
+        bucket = _pow2_at_least(len(slots), 1)
+        ok = np.zeros(bucket, dtype=bool)
+        ok[: len(slots)] = True
+        padded = np.zeros(bucket, dtype=np.int64)
+        padded[: len(slots)] = slots
+        slots_t, ok_t = (torch.from_numpy(a).to(self.device) for a in (padded, ok))
+        k = min(limit, len(slots))
+        if mv is None:
+            x, _valid = cache.vectors()
+            top, raws, ranks, finite = (t.cpu().numpy() for t in pipe.rerank_pipeline(
+                x, slots_t, ok_t, self._query_tensor(q), metric=self.metric, limit=k))
+            if finite:
+                return self._slots_to_results(cache, top, raws, ranks)
+            self.host_routes += 1
+            return self._rank_host(cache, q, candidate_ids, limit)
+        tokens, counts = cache.multi_vectors()
+        qtok = self._query_tensor(queries[None])
+        qmask = torch.ones((1, queries.shape[0]), dtype=torch.bool, device=self.device)
+        top, scores, dev_ok = (t[0].cpu().numpy() for t in maxsim_ops.maxsim_subset_topk_batch(
+            tokens, counts, slots_t[None], ok_t[None], qtok, qmask, metric=metric, limit=k))
+        if dev_ok:
+            return self._mv_slots_to_results(cache, top, scores, metric)
+        return self._multi_vector_host(cache, queries, metric, limit, ids=candidate_ids)
 
     # ------------------------------------------------------------------
     # snapshot / restore (collection.ex:135-164,376-433)
@@ -1301,18 +1747,6 @@ class Collection:
         if callable(configure):
             configure(self._config())
         self._store.snapshot(path)
-
-
-def _not_ported(mode: str):
-    def method(self, *args, **kwargs):
-        raise E.InvalidIndex(f"{mode} is not ported yet")
-
-    method.__name__ = mode
-    return method
-
-
-for _mode in _NOT_PORTED_MODES:
-    setattr(Collection, _mode, _not_ported(_mode))
 
 
 def load_snapshot(path: str, *, name=None, index=None, index_options=None, score=None,

@@ -377,24 +377,23 @@ class FlatIndex(Index):
         return self._cap >= 1024 and flat_scan.supports(self.metric, self._cap, k)
 
     def _dispatch(self, queries_device, k: int):
-        """(slots [B, k], raws [B, k], ok [B]) device tensors: the fused
-        kernels when eligible (one ok flag for the whole batch), else the
-        plain scan (one flag per query)."""
+        """(slots [B, k], raws [B, k], ranks [B, k], ok [B]) device tensors:
+        the fused kernels when eligible (one ok flag for the whole batch),
+        else the plain scan (one flag per query)."""
         x, valid, lex_order = self._device
         if self._fused_eligible(k):
             xsq, bias, lex_rank = self._device_scan
             if self.storage == "int8":
-                slots, raws, _ranks, ok = flat_scan.fused_int8_search(
+                slots, raws, ranks, ok = flat_scan.fused_int8_search(
                     x, self._int8_scale, xsq, bias, lex_rank, queries_device,
                     metric=self.metric, k=k)
             else:
-                slots, raws, _ranks, ok = flat_scan.fused_flat_search(
+                slots, raws, ranks, ok = flat_scan.fused_flat_search(
                     x, xsq, bias, lex_rank, queries_device, metric=self.metric, k=k)
-            return slots, raws, ok.expand(queries_device.shape[0])
+            return slots, raws, ranks, ok.expand(queries_device.shape[0])
         # _int8_scale is None unless the block is int8
-        slots, raws, _ranks, ok = _search_kernel(x, valid, lex_order, queries_device,
-                                                 self._int8_scale, metric=self.metric, limit=k)
-        return slots, raws, ok
+        return _search_kernel(x, valid, lex_order, queries_device, self._int8_scale,
+                              metric=self.metric, limit=k)
 
     def _query_block(self, qs: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(qs, dtype=np.float32)).to(self.device)
@@ -436,7 +435,7 @@ class FlatIndex(Index):
     def _search_rows(self, qs: np.ndarray, limit: int) -> list:
         self._sync_device()
         k = bucket_limit(min(limit, len(self._slot_of)), self._cap)
-        d_slots, d_raws, d_ok = self._dispatch(self._query_block(qs), k)
+        d_slots, d_raws, _ranks, d_ok = self._dispatch(self._query_block(qs), k)
         slots, raws, ok = d_slots.cpu().numpy(), d_raws.cpu().numpy(), d_ok.cpu().numpy()
         n = min(limit, len(self._slot_of))
         results = []
@@ -455,8 +454,19 @@ class FlatIndex(Index):
         serving/pipelining path — callers own staging and result fetch."""
         self._sync_device()
         k = bucket_limit(min(limit, max(len(self._slot_of), 1)), self._cap)
-        slots, raws, _ok = self._dispatch(queries_device, k)
+        slots, raws, _ranks, _ok = self._dispatch(queries_device, k)
         return slots, raws
+
+    def candidate_slots_device(self, queries_device, count: int):
+        """Hybrid-generator path: device ``(slots [B, k], ok [B, k])`` with
+        ``ok`` masking pad and dead rows (rank +inf); ``k`` is ``count``
+        bucketed as for a search. Slots index this index's internal slot
+        order. As in the JAX package, a fused batch's tie-spill flag is not
+        read here: the candidates are the scan's top ``k`` as they stand."""
+        self._sync_device()
+        k = bucket_limit(min(count, max(len(self._slot_of), 1)), self._cap)
+        slots, _raws, ranks, _ok = self._dispatch(queries_device, k)
+        return slots, torch.isfinite(ranks)
 
     def _host_search(self, q: np.ndarray, limit: int) -> list:
         """float64 fallback when f32 scoring overflowed or a tie spilled —

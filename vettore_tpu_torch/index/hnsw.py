@@ -21,10 +21,11 @@ The host graph (this file) is the canonical, incrementally-mutable structure
 and the correctness oracle. The batched beam search on the index's device
 lives in ``hnsw_device.py``; a cold ingest of ``BULK_THRESHOLD`` rows or more
 builds the graph on the device through the kNN build
-(``hnsw_knn_build.py``). Not ported yet, and refused with a message that
-says so: the wave build (``build="wave"``), ``put`` and ``delete`` on a
-bulk-built graph (incremental mutation and compaction), and
-``save_graph`` / ``load_graph``.
+(``hnsw_knn_build.py``); :meth:`HnswIndex.save_graph` /
+:meth:`HnswIndex.load_graph` cache a bulk graph in the JAX package's file
+format. Not ported yet, and refused with a message that says so: the wave
+build (``build="wave"``), and ``put`` and ``delete`` on a bulk-built graph
+(incremental mutation and compaction).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import heapq
 import math
 
 import numpy as np
+import torch
 
 from ..errors import (
     DimensionMismatch,
@@ -40,6 +42,7 @@ from ..errors import (
     InvalidIndex,
     InvalidVector,
     UnsupportedHnswMetric,
+    VettoreError,
 )
 from ..metrics import normalize_metric
 from .base import Index
@@ -315,14 +318,35 @@ class HnswIndex(Index):
         self._device_version = self._version
 
     def save_graph(self, path: str, *, include_x: bool = True) -> None:
-        """Not ported yet (the JAX package's ``hnsw_build.save_graph``)."""
-        raise InvalidIndex("save_graph is not ported yet")
+        """Serializes the device graph as a rebuildable acceleration cache
+        (see ``hnsw_build.save_graph``). Only bulk-built graphs serialize —
+        a host-incremental graph is already cheap to reconstruct."""
+        if self._bulk is None:
+            raise VettoreError("only bulk-built graphs can be saved", reason="not_bulk_built")
+        from . import hnsw_build
+
+        hnsw_build.save_graph(self._bulk, path, include_x=include_x)
 
     @classmethod
     def load_graph(cls, metric: str, options: dict | None, path: str, *,
                    x_device=None, device="cuda") -> "HnswIndex":
-        """Not ported yet (the JAX package's ``hnsw_build.load_graph``)."""
-        raise InvalidIndex("load_graph is not ported yet")
+        """Builds an index on ``device`` around a graph saved by
+        :meth:`save_graph` (this package's or the JAX package's).
+        ``x_device`` optionally shares an existing ``[n, d]`` f32 block on
+        ``device`` (graph slot order) instead of reading the file's."""
+        from . import hnsw_build
+
+        index = cls(metric, options, device=device)
+        graph = hnsw_build.load_graph(path, x_device=x_device, device=index.device)
+        if graph.metric != index.metric:
+            raise UnsupportedHnswMetric(
+                f"graph metric {graph.metric!r} != index metric {index.metric!r}")
+        index._bulk = graph
+        index._dim = int(graph.x.shape[1])
+        index._version += 1
+        index._device = graph
+        index._device_version = index._version
+        return index
 
     def _insert(self, external_id: str, vector: np.ndarray) -> None:
         if external_id in self._internal:
@@ -515,6 +539,14 @@ class HnswIndex(Index):
         from . import hnsw_device
 
         return hnsw_device.search_tensors(self, queries_device, limit)
+
+    def candidate_slots_device(self, queries_device, count: int):
+        """Hybrid-generator path: ``(slots [B, k] int64, ok [B, k] bool)``
+        on the index's device, ``ok`` masking the beam's -1 pads. Slots index
+        the device graph's slot order (its ``ids`` map them to external
+        ids)."""
+        slots, raws = self.search_batch_device(queries_device, count)
+        return slots, (slots >= 0) & torch.isfinite(raws)
 
     def _use_device(self) -> bool:
         # bulk graphs only exist on the device; otherwise the batched beam

@@ -8,20 +8,27 @@ row map), Malkov's diversity heuristic (:func:`_heuristic_select`), the
 routes ``build="auto"`` / ``"knn"`` to the cluster-blocked kNN build
 (``hnsw_knn_build.py``).
 
+:func:`save_graph` / :func:`load_graph` write and read a bulk graph as the
+JAX package's ``.npz`` file (the same keys, dtypes and ``GRAPH_MAGIC``), so
+either package loads the other's files.
+
 Not ported yet, and refused with a message that says so: the wave build
 (``build="wave"``, and ``"auto"`` below ``KNN_BUILD_MIN`` rows), which also
-carries incremental mutation and compaction of bulk graphs, and
-``save_graph`` / ``load_graph``. The build reads ``params["build"]`` only;
-the JAX package's ``VETTORE_HNSW_BUILD`` / ``VETTORE_BUILD_*`` environment
-overrides are not carried over.
+carries incremental mutation and compaction of bulk graphs. The build reads
+``params["build"]`` only; the JAX package's ``VETTORE_HNSW_BUILD`` /
+``VETTORE_BUILD_*`` environment overrides are not carried over.
 """
 
 from __future__ import annotations
+
+import os
+import tempfile
 
 import numpy as np
 import torch
 
 from ..errors import InvalidIndex
+from .flat import resolve_device
 from .hnsw import levels_batch
 from .hnsw_device import DeviceGraph, hub_count
 
@@ -104,6 +111,97 @@ class BulkGraph(DeviceGraph):
         if self.valid is None:
             return self.n
         return int(self.valid[: self.n].sum())
+
+
+GRAPH_MAGIC = "vettore-tpu-hnsw-graph-v1"
+
+
+def _np32(t) -> np.ndarray:
+    return t.cpu().numpy().astype(np.int32, copy=False)
+
+
+def save_graph(graph: BulkGraph, path: str, *, include_x: bool = True) -> None:
+    """Serializes a bulk-built graph to an ``.npz`` (atomic tmp + rename).
+
+    The graph is an acceleration structure — the canonical data always lives
+    in the host store — so this is a cache format, not a durability format:
+    rebuilding from canonical records gives an equivalent graph.
+    ``include_x=False`` omits the ``[n, d]`` vector block for callers that
+    already hold the same vectors on the device (pass ``x_device`` at load).
+    A graph with tombstoned slots (one loaded from such a file) writes its
+    ``valid`` mask, as the JAX package's mutated graphs do."""
+    n = graph.n
+    payload = {
+        "magic": np.array(GRAPH_MAGIC),
+        "ids": np.array(graph.ids, dtype=str),
+        "n": np.int64(n),
+        "m": np.int64(graph.m),
+        "m0": np.int64(graph.m0),
+        "lmax": np.int64(graph.lmax),
+        "metric": np.array(graph.metric),
+        "a0": _np32(graph.a0[:n]),
+        "up_index": _np32(graph.up_index[:n]),
+        "up_adj": _np32(graph.up_adj),
+        "lex_rank": _np32(graph.lex_rank[:n]),
+        "entry_slot": np.int64(graph.entry_slot),
+        "entry_level": np.int64(graph.entry_level),
+        "levels": np.asarray(graph.levels, dtype=np.int32)[:n],
+        "lex_spacing": np.int64(graph.lex_spacing),
+    }
+    if graph.valid is not None and not bool(graph.valid[:n].all()):
+        payload["valid"] = graph.valid[:n].cpu().numpy()
+    if include_x:
+        payload["x"] = graph.x[:n].float().cpu().numpy()
+    dirname = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(dirname, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=dirname, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            np.savez(fh, **payload)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load_graph(path: str, *, x_device=None, device="cuda") -> BulkGraph:
+    """Loads a graph saved by :func:`save_graph` (of either package) onto
+    ``device``. ``x_device`` supplies the ``[n, d]`` f32 vector block, in
+    graph slot order and on ``device``, when the file was written with
+    ``include_x=False`` (or to share one device copy). The file is read
+    with ``allow_pickle=False``."""
+    dev = resolve_device(device)
+    with np.load(path, allow_pickle=False) as z:
+        if str(z["magic"]) != GRAPH_MAGIC:
+            raise ValueError(f"not a vettore graph file: {path}")
+        ids = [str(i) for i in z["ids"]]
+        n = int(z["n"])
+        if x_device is not None:
+            x = x_device
+            if x.shape[0] != n:
+                raise ValueError("x_device row count does not match graph")
+            if x.device.type != dev.type:
+                raise ValueError(f"x_device is on {x.device}, the graph loads onto {dev}")
+        elif "x" in z:
+            x = torch.from_numpy(np.asarray(z["x"], dtype=np.float32)).to(dev)
+        else:
+            raise ValueError("graph file has no vector block; pass x_device")
+
+        def tensor(key, dtype=np.int32):
+            return torch.from_numpy(np.asarray(z[key], dtype=dtype)).to(dev)
+
+        valid = None
+        if "valid" in z and not bool(z["valid"].all()):
+            valid = tensor("valid", bool)
+        return BulkGraph(
+            ids=ids, n=n, m=int(z["m"]), m0=int(z["m0"]), lmax=int(z["lmax"]),
+            metric=str(z["metric"]), x=x, a0=tensor("a0"), up_index=tensor("up_index"),
+            up_adj=tensor("up_adj"), lex_rank=tensor("lex_rank"),
+            entry_slot=int(z["entry_slot"]), entry_level=int(z["entry_level"]),
+            levels=np.asarray(z["levels"], dtype=np.int32), valid=valid,
+            lex_spacing=int(z["lex_spacing"]) if "lex_spacing" in z else 1,
+        )
 
 
 def _prep_order(ids, max_level: int, n: int):
