@@ -138,8 +138,9 @@ def test_files_cross_between_the_packages(tmp_path):
 
 
 def test_a_file_with_tombstones_loads_its_mask(tmp_path):
-    """The port has no mutation state: a JAX file carrying ``valid`` loads
-    as a mask, and its searches skip the deleted ids as JAX's do."""
+    """A JAX file carrying ``valid`` loads as a mask (with the mutation
+    bookkeeping rebuilt from it), and its searches skip the deleted ids as
+    JAX's do."""
     jindex, queries = _bulk(JHnsw)
     ids, _data_, _q = _data()
     gone = set(ids[:25])

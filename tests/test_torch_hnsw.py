@@ -7,8 +7,9 @@ order and host adjacency must be bit-equal. The beam runs on one graph in
 both packages (a JAX ``DeviceGraph`` or ``BulkGraph`` carried across by
 ``convert.hnsw_graph_state``) and must give the same ids in the same order,
 with raw scores within 1e-5 (f32 sums in another order), including on a
-corpus of duplicated vectors where ranks tie exactly. Also: the refusals of
-what is not ported yet.
+corpus of duplicated vectors where ranks tie exactly. Also: the wave build
+and writes to a bulk graph, once refused as not ported yet, against the JAX
+package's.
 """
 
 import numpy as np
@@ -269,34 +270,53 @@ def test_chunks_do_not_change_results(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# refusals: what is not ported yet
+# once refused as not ported yet: the wave build and writes to a bulk graph
 # ---------------------------------------------------------------------------
 
 
 def test_wave_build_is_not_ported_yet():
+    """Ported now: ``build="wave"``, and ``"auto"`` below ``KNN_BUILD_MIN``,
+    build the JAX package's wave graph (one wave at this size)."""
     data = _unit(np.random.default_rng(17), 64, 8)
+    ids = [f"w{i}" for i in range(64)]
+    want = jbuild.bulk_build("cosine", {**jhnsw.validate_options(PARAMS), "build": "wave"},
+                             ids, data)
     for options in ({**PARAMS, "build": "wave"}, PARAMS):  # auto below KNN_BUILD_MIN: wave
         index = thnsw.HnswIndex("cosine", options, device="cpu")
         index.BULK_THRESHOLD = 2
-        with pytest.raises(terr.InvalidIndex, match="wave build .* not ported yet"):
-            index.put_many((f"w{i}", v) for i, v in enumerate(data))
+        index.put_many(zip(ids, data))
+        got = index._bulk
+        assert got.ids == want.ids and len(index) == 64
+        np.testing.assert_array_equal(got.a0.numpy(), np.asarray(want.a0))
+        np.testing.assert_array_equal(got.up_adj.numpy(), np.asarray(want.up_adj))
+        assert index.search(data[5].astype(np.float64), 1)[0][0] == "w5"
 
 
 def test_mutating_a_bulk_graph_is_not_ported_yet(monkeypatch):
+    """Ported now: put, put_many and delete on a kNN-built graph take the
+    JAX package's incremental mutation, with its search results."""
+    from vettore_tpu.index import hnsw_knn_build as jknn
     from vettore_tpu_torch.index import hnsw_knn_build as tknn
 
-    monkeypatch.setattr(tknn, "MIN_NGB", 4)
-    monkeypatch.setattr(tknn, "PROBES", 4)
+    for module in (jknn, tknn):
+        monkeypatch.setattr(module, "MIN_NGB", 4)
+        monkeypatch.setattr(module, "PROBES", 4)
     data = _unit(np.random.default_rng(19), 128, 8)
-    index = thnsw.HnswIndex("cosine", {**PARAMS, "build": "knn"}, device="cpu")
-    index.BULK_THRESHOLD = 2
-    index.put_many((f"b{i:03d}", v) for i, v in enumerate(data))
-    assert index._bulk is not None and len(index) == 128
-    for mutate in (lambda: index.put("new", data[0]),
-                   lambda: index.put_many([("new", data[0])]),
-                   lambda: index.delete("b001")):
-        with pytest.raises(terr.InvalidIndex, match="not ported yet"):
-            mutate()
-    index.delete("missing")  # as the JAX package's incremental delete: a no-op
-    assert len(index) == 128
+    indexes = (jhnsw.HnswIndex("cosine", {**PARAMS, "build": "knn"}),
+               thnsw.HnswIndex("cosine", {**PARAMS, "build": "knn"}, device="cpu"))
+    for index in indexes:
+        index.BULK_THRESHOLD = 2
+        index.put_many((f"b{i:03d}", v) for i, v in enumerate(data))
+        assert index._bulk is not None and len(index) == 128
+        index.put("new", -data[0])
+        index.put_many([("new2", -data[1]), ("b002", -data[2])])
+        index.delete("b001")
+        index.delete("missing")  # a no-op
+        assert index._bulk is not None and len(index) == 129
+    jindex, index = indexes
     assert index.search(data[5].astype(np.float64), 1)[0][0] == "b005"
+    assert index.search(-data[0].astype(np.float64), 1)[0][0] == "new"
+    q = np.concatenate([data[:12], -data[:3]]).astype(np.float64)
+    got, want = index.search_batch(q, 6), jindex.search_batch(q, 6)
+    assert [[h[0] for h in row] for row in got] == [[h[0] for h in row] for row in want]
+    assert "b001" not in {h[0] for row in got for h in row}

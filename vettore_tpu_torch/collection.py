@@ -15,8 +15,9 @@ is always rebuildable from the store. Search modes:
   quantized, the index's search, the HNSW beam) + an exact or MaxSim rerank
 
 The index is the exact flat index (``index="flat"``) or the HNSW graph
-(``index="hnsw"``: host inserts, and the kNN bulk build and batched beam
-search on the collection's device, ``index/hnsw*.py``); ``attach_index``
+(``index="hnsw"``: host inserts, and the kNN or wave bulk build, writes to
+the bulk graph and the batched beam search on the collection's device,
+``index/hnsw*.py``); ``attach_index``
 swaps in a prebuilt one (e.g. a graph from ``HnswIndex.load_graph``).
 
 Not ported yet: the IVF index, mesh sharding and ``compressed=True`` (it

@@ -30,7 +30,7 @@ import torch
 
 from .errors import DimensionMismatch, InvalidVector
 from .index.flat import FlatIndex, resolve_device, round_bf16
-from .index.hnsw_build import BulkGraph
+from .index.hnsw_build import BulkGraph, _MutState
 from .index.hnsw_device import DeviceGraph
 
 
@@ -165,28 +165,48 @@ def hnsw_graph_state(graph, *, device):
     graph); its fields are read through ``np.asarray``: ``x`` (f32), ``a0``,
     ``up_index``, ``up_adj``, ``lex_rank``, ``valid`` (or None),
     ``entry_slot``, ``entry_level``, ``ids``, ``n``, ``m``, ``m0``,
-    ``lmax`` and ``metric``, and for a bulk graph ``levels`` and
-    ``lex_spacing``. Slots, adjacency and tie-break ranks are kept as they
-    are, so slot numbers mean the same node in both."""
+    ``lmax`` and ``metric``, and for a bulk graph ``levels``,
+    ``lex_spacing`` and ``_mut``. Slots, adjacency and tie-break ranks are
+    kept as they are, so slot numbers mean the same node in both.
+
+    A mutated bulk graph (``_mut`` set) comes across whole: its arrays at
+    their capacity, trash rows included, its ``valid`` mask and its host
+    bookkeeping, so the same writes afterwards give the same graph in both
+    packages (the capacity sizes an incremental put's hub set). Other graphs
+    are cut to their ``n`` slots."""
     dev = resolve_device(device)
     n = int(graph.n)
+    st = getattr(graph, "_mut", None)
 
-    def tensor(a, dtype):
-        return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+    def tensor(a, dtype, cut=True):
+        a = np.asarray(a)
+        return torch.from_numpy(np.array(a[:n] if cut and st is None else a, dtype=dtype)).to(dev)
 
     fields = dict(
         ids=[str(i) for i in graph.ids][:n], n=n, m=int(graph.m), m0=int(graph.m0),
         lmax=int(graph.lmax), metric=str(graph.metric),
-        x=torch.from_numpy(_as_f32(graph.x)[:n]).to(dev),
-        a0=tensor(np.asarray(graph.a0)[:n], np.int32),
-        up_index=tensor(np.asarray(graph.up_index)[:n], np.int32),
-        up_adj=tensor(graph.up_adj, np.int32),
-        lex_rank=tensor(np.asarray(graph.lex_rank)[:n], np.int32),
+        x=tensor(_as_f32(graph.x), np.float32),
+        a0=tensor(graph.a0, np.int32), up_index=tensor(graph.up_index, np.int32),
+        up_adj=tensor(graph.up_adj, np.int32, cut=False), lex_rank=tensor(graph.lex_rank, np.int32),
         entry_slot=int(np.asarray(graph.entry_slot)),
         entry_level=int(np.asarray(graph.entry_level)),
-        valid=None if graph.valid is None else tensor(np.asarray(graph.valid)[:n], bool),
+        valid=None if graph.valid is None else tensor(graph.valid, bool),
     )
-    if hasattr(graph, "levels"):
-        return BulkGraph(**fields, levels=np.array(graph.levels, dtype=np.int32)[:n],
-                         lex_spacing=int(getattr(graph, "lex_spacing", 1)))
-    return DeviceGraph(**fields, hub_slots=np.array(graph._hub_slots_np, dtype=np.int32))
+    if not hasattr(graph, "levels"):
+        return DeviceGraph(**fields, hub_slots=np.array(graph._hub_slots_np, dtype=np.int32))
+    out = BulkGraph(**fields, levels=np.array(graph.levels, dtype=np.int32)[:n],
+                    lex_spacing=int(getattr(graph, "lex_spacing", 1)))
+    if st is not None:
+        mut = _MutState()
+        mut.slot_of = dict(st.slot_of)
+        mut.levels_np = np.array(st.levels_np, dtype=np.int32)
+        mut.valid_np = np.array(st.valid_np, dtype=bool)
+        mut.lex_np = np.array(st.lex_np, dtype=np.int64)
+        mut.dead = int(st.dead)
+        mut.sorted_ids = np.array(st.sorted_ids)
+        mut.sorted_ranks = np.array(st.sorted_ranks, dtype=np.int64)
+        mut.up_used = int(st.up_used)
+        mut.levels_d = torch.from_numpy(mut.levels_np.copy()).to(dev)
+        out.levels = mut.levels_np
+        out._mut = mut
+    return out

@@ -20,12 +20,13 @@ reference's ``hnsw.rs``:
 The host graph (this file) is the canonical, incrementally-mutable structure
 and the correctness oracle. The batched beam search on the index's device
 lives in ``hnsw_device.py``; a cold ingest of ``BULK_THRESHOLD`` rows or more
-builds the graph on the device through the kNN build
-(``hnsw_knn_build.py``); :meth:`HnswIndex.save_graph` /
+builds the graph on the device (``hnsw_build.py``: the kNN build from
+``KNN_BUILD_MIN`` rows, the wave build below it), and a bulk graph then takes
+``put`` / ``put_many`` / ``put_matrix`` / ``delete`` on the device
+(``hnsw_build.incremental_put`` / ``incremental_delete``, compaction once a
+quarter of its slots are tombstones); :meth:`HnswIndex.save_graph` /
 :meth:`HnswIndex.load_graph` cache a bulk graph in the JAX package's file
-format. Not ported yet, and refused with a message that says so: the wave
-build (``build="wave"``), and ``put`` and ``delete`` on a bulk-built graph
-(incremental mutation and compaction).
+format.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ import torch
 from ..errors import (
     DimensionMismatch,
     InvalidHnswOptions,
-    InvalidIndex,
     InvalidVector,
     UnsupportedHnswMetric,
     VettoreError,
@@ -61,7 +61,7 @@ DEFAULT_OPTIONS = {
     "expand_w": 8,
     # device extension: bulk-construction algorithm. "knn" = cluster-blocked
     # kNN assembly (dense matrix products, hnsw_knn_build.py); "wave" =
-    # batched insertion waves (not ported yet); "auto" picks knn at scale.
+    # batched insertion waves (hnsw_build.py); "auto" picks knn at scale.
     "build": "auto",
 }
 
@@ -245,8 +245,9 @@ class HnswIndex(Index):
     def put(self, id: str, vector) -> None:
         arr = self._validate(vector)
         if self._bulk is not None:
-            _refuse_bulk_mutation()
-        self._insert(str(id), arr)
+            self._mutate_bulk([str(id)], arr[None, :].astype(np.float32))
+        else:
+            self._insert(str(id), arr)
         self._version += 1
 
     def put_many(self, pairs) -> None:
@@ -268,7 +269,9 @@ class HnswIndex(Index):
             batch.append((str(id), arr))
         if self._bulk is not None:
             if batch:
-                _refuse_bulk_mutation()
+                self._mutate_bulk([id for id, _ in batch],
+                                  np.stack([arr for _, arr in batch]).astype(np.float32))
+                self._version += 1
             return
         if not self._vectors and len(batch) >= self.BULK_THRESHOLD:
             # duplicate ids keep the last occurrence, matching the replace
@@ -286,15 +289,17 @@ class HnswIndex(Index):
     def put_matrix(self, ids, matrix) -> None:
         """Bulk ingest of an [n, d] matrix with one row per id (the path of
         ``Collection.put_matrix``): the same result as ``put_many`` of its
-        rows, with the matrix validated as a whole and, on an empty index of
-        ``BULK_THRESHOLD`` distinct ids or more, handed to the bulk build
-        as one f32 block (no per-row Python)."""
+        rows, with the matrix validated as a whole and handed on as one f32
+        block (no per-row Python) to the bulk build, on an empty index of
+        ``BULK_THRESHOLD`` distinct ids or more, or to the bulk graph's
+        incremental put."""
         ids = [str(i) for i in ids]
         matrix = np.asarray(matrix)
         if matrix.ndim != 2 or matrix.shape[0] != len(ids):
             raise InvalidVector("matrix must be [n, d] with one row per id")
-        if not (self._bulk is None and not self._vectors and len(ids) >= self.BULK_THRESHOLD
-                and matrix.shape[1] > 0 and len(set(ids)) == len(ids)):
+        cold = (self._bulk is None and not self._vectors and len(ids) >= self.BULK_THRESHOLD
+                and len(set(ids)) == len(ids))
+        if not ids or matrix.shape[1] == 0 or not (cold or self._bulk is not None):
             self.put_many(zip(ids, matrix))
             return
         try:
@@ -303,7 +308,13 @@ class HnswIndex(Index):
             raise InvalidVector("vector must be numeric") from exc
         if not finite:
             raise InvalidVector("vector contains a non-finite value")
-        self._bulk_build(ids, np.ascontiguousarray(matrix, dtype=np.float32))
+        if cold:
+            self._bulk_build(ids, np.ascontiguousarray(matrix, dtype=np.float32))
+            return
+        if matrix.shape[1] != self._dim:
+            raise DimensionMismatch("dimension mismatch")
+        self._mutate_bulk(ids, np.ascontiguousarray(matrix, dtype=np.float32))
+        self._version += 1
 
     def _bulk_build(self, ids, vectors):
         """Device construction for large cold-start ingests (see
@@ -313,6 +324,24 @@ class HnswIndex(Index):
         self._bulk = hnsw_build.bulk_build(self.metric, self.params, ids, vectors,
                                            device=self.device)
         self._dim = vectors.shape[1]
+        self._version += 1
+        self._device = self._bulk
+        self._device_version = self._version
+
+    def bulk_ingest_device(self, ids, x_device) -> None:
+        """Bulk-builds the graph from a device-resident [n, d] f32 block on
+        the index's device, in ``ids`` order (e.g. a flat index's block) — no
+        host-to-device transfer. Only valid on an empty index."""
+        from . import hnsw_build
+
+        if self._bulk is not None or self._vectors:
+            raise VettoreError("bulk_ingest_device requires an empty index",
+                               reason="not_empty")
+        if x_device.device.type != self.device.type:
+            raise ValueError(f"x_device is on {x_device.device}, the index on {self.device}")
+        self._bulk = hnsw_build.bulk_build(self.metric, self.params, [str(i) for i in ids],
+                                           x_device=x_device)
+        self._dim = int(x_device.shape[1])
         self._version += 1
         self._device = self._bulk
         self._device_version = self._version
@@ -347,6 +376,28 @@ class HnswIndex(Index):
         index._device = graph
         index._device_version = index._version
         return index
+
+    def _mutate_bulk(self, ids, vecs) -> None:
+        """Incremental insert/replace of ``ids`` with rows ``vecs`` [B, d]
+        f32 into the bulk-built device graph: new slots append through the
+        build's wave step, replaced ids tombstone
+        (``hnsw_build.incremental_put``) — no O(n) host hydration."""
+        from . import hnsw_build
+
+        hnsw_build.incremental_put(self._bulk, self.params, ids, vecs)
+        self._dim = int(self._bulk.x.shape[1])
+        if hnsw_build.should_compact(self._bulk):
+            self._compact_bulk()
+
+    def _compact_bulk(self) -> None:
+        from . import hnsw_build
+
+        graph = hnsw_build.compact(self._bulk, self.params)
+        self._bulk = graph
+        self._device = graph
+        if graph is None:
+            self._dim = None
+            self._device_version = -1
 
     def _insert(self, external_id: str, vector: np.ndarray) -> None:
         if external_id in self._internal:
@@ -408,10 +459,18 @@ class HnswIndex(Index):
 
     def delete(self, external_id: str) -> None:
         if self._bulk is not None:
-            # as the JAX package's incremental delete, a missing id is a
-            # no-op (a collection rolling back a refused put relies on it)
-            if str(external_id) in self._bulk.id_set:
-                _refuse_bulk_mutation()
+            from . import hnsw_build
+
+            removed = hnsw_build.incremental_delete(self._bulk, [str(external_id)])
+            if removed:
+                self._version += 1
+                if self._bulk.live == 0:
+                    self._bulk = None
+                    self._device = None
+                    self._device_version = -1
+                    self._dim = None
+                elif hnsw_build.should_compact(self._bulk):
+                    self._compact_bulk()
             return
         internal = self._internal.pop(str(external_id), None)
         if internal is None:
@@ -566,9 +625,3 @@ class HnswIndex(Index):
             vec = self._vectors[nid]
             out.append((self._external[nid], self._raw(query, vec)))
         return out
-
-
-def _refuse_bulk_mutation():
-    raise InvalidIndex(
-        "put and delete on a bulk-built HNSW graph (incremental mutation and "
-        "compaction) are not ported yet")

@@ -188,10 +188,13 @@ class DeviceGraph:
             self._xb = self.x.to(torch.bfloat16)
         return self._xb
 
+    def _hub_slots(self) -> np.ndarray:
+        return self._hub_slots_np
+
     def hubs(self, dtype=torch.bfloat16):
         """(hub_slots [H] int64, hub_x [H, d]) in the traversal dtype (lazy)."""
         if dtype not in self._hubs:
-            slots = torch.from_numpy(self._hub_slots_np.astype(np.int64)).to(self.x.device)
+            slots = torch.from_numpy(self._hub_slots().astype(np.int64)).to(self.x.device)
             block = self.xb if dtype == torch.bfloat16 else self.x
             self._hubs[dtype] = (slots, block[slots])
         return self._hubs[dtype]
@@ -200,7 +203,7 @@ class DeviceGraph:
         """Liveness of the hub rows (None when nothing is dead)."""
         if self.valid is None:
             return None
-        return self.valid[torch.from_numpy(self._hub_slots_np.astype(np.int64)).to(self.x.device)]
+        return self.valid[torch.from_numpy(self._hub_slots().astype(np.int64)).to(self.x.device)]
 
 
 def _set_bits(visited, slots, mask):
@@ -363,7 +366,13 @@ def search_tensors(host, queries, limit: int):
     """Beam search of ``queries`` ([B, d] tensor, or anything
     ``torch.as_tensor`` takes) over the host index's device graph; returns
     ``(slots [B, k] int64, raws [B, k] f32)`` on the index's device, ``k =
-    min(limit, n)``, slot -1 and raw +inf where a query found fewer hits."""
+    min(limit, n)``, slot -1 and raw +inf where a query found fewer hits.
+
+    A mutated bulk graph is capacity-padded past ``n`` (its slot high-water
+    mark, tombstones included) and masks its tombstones by ``valid``: as in
+    the JAX package, ``ef`` and ``k`` are bounded by ``n``, the beam never
+    reaches a padded slot (no edge leads there), and a tombstoned slot routes
+    the beam but never appears in the results."""
     graph = _graph(host)
     queries = torch.as_tensor(queries, dtype=torch.float32).to(graph.x.device)
     ef = min(max(host.params["ef_search"], limit), graph.n)
@@ -374,7 +383,7 @@ def search_tensors(host, queries, limit: int):
     d = graph.x.shape[1]
     # the bitset's int64 words; a step's rows gathered (bf16) and widened
     # (f32), with headroom
-    per_query = 8 * ((graph.n + 31) // 32) + 10 * min(w, ef) * graph.m0 * d
+    per_query = 8 * ((graph.a0.shape[0] + 31) // 32) + 10 * min(w, ef) * graph.m0 * d
     chunk = max(1, _CHUNK_BYTES // per_query)
     outs = [
         search_impl(

@@ -44,7 +44,7 @@ import torch
 
 from ..ops.distance import no_tf32
 from ..ops.topk import lex_sort, smallest
-from .hnsw_build import _BIG32, BulkGraph, _heuristic_select, _prep_order
+from .hnsw_build import _BIG32, BulkGraph, _heuristic_select, _prep_order, _slot_block
 from .hnsw_device import _rank_rows
 
 GROUP = 64
@@ -371,18 +371,20 @@ def _layer_adjacency(xt, lex_d, nl: int, deg: int, metric: str):
     return _reciprocal_pass(adj, dist, xt, lex_d, nl, metric=metric, deg=deg)[:nl]
 
 
-def bulk_build_knn(metric: str, params: dict, ids, vectors, *, device) -> BulkGraph:
-    """Builds a full BulkGraph on ``device`` via cluster-blocked kNN
-    assembly (module docstring) from ``vectors`` (host [n, d] f32, in
-    ``ids`` order)."""
-    n, d = vectors.shape
+def bulk_build_knn(metric: str, params: dict, ids, vectors=None, *, device="cuda",
+                   x_device=None) -> BulkGraph:
+    """Builds a full BulkGraph via cluster-blocked kNN assembly (module
+    docstring) from ``vectors`` (host [n, d] f32, in ``ids`` order, uploaded
+    once to ``device``) or ``x_device`` (a device-resident [n, d] f32 block
+    in ``ids`` order, permuted on its device)."""
+    n = int(x_device.shape[0]) if x_device is not None else vectors.shape[0]
     m, m0 = params["m"], params["m0"]
     ids_sorted, order, levels, lex_rank, lmax, up_index, cap_up = _prep_order(
         ids, params["max_level"], n)
 
-    # one upload; the slot permutation runs on the device
-    xd = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float32)).to(device)
-    xd = xd[torch.from_numpy(order).to(device)]
+    # at most one upload; the slot permutation runs on the device
+    xd = _slot_block(order, vectors, device, x_device)
+    device = xd.device
     xt = xd.to(torch.bfloat16)
     lex_d = torch.from_numpy(lex_rank).to(device)
 
