@@ -3,7 +3,8 @@
 Drives the port's paths — exact flat search (f32, bf16 and int8 storage),
 the funnel and quantized search modes, the HNSW index (its kNN and wave bulk
 builds, batched beam search, writes to a bulk graph, compaction and graph
-files), the multi-vector MaxSim search (exact
+files), the IVF index (its k-means build, probed search, writes and
+rebuilds), ``compressed=True``, the multi-vector MaxSim search (exact
 and over MUVERA candidates), the hybrid pipelines and MMR, through
 ``Collection`` — on one CUDA card, builds the hand-written CUDA
 kernels from this checkout, holds every kernel against its plain PyTorch
@@ -86,6 +87,31 @@ Phases (each prints one line; any failure exits non-zero):
    f32 on 32 queries, no host route, the K3/K4 launch counts grown (K3 on
    the direct TMA route, K4 on the direct bulk-copy route), ms per device batch of 512 and its
    ``torch.profiler`` trace;
+4g. the IVF index on phase 4's corpus, as ``bench.py`` drives it:
+   ``IvfIndex.from_flat`` of phase 4's flat index (n_probe 4, bf16 storage)
+   and a cold ``rebuild`` (timed), then a second build (f32 storage) whose
+   permutation, routing centroids and block ids must be bit-equal (the
+   centroid update is deterministic); the n_probe sweep 4, 8, .., 64 until
+   recall@10 against phase 4's exact ids reaches 0.95 (failing if none
+   does), its raw scores within 1e-5 of float64 over the bf16 rows and its
+   hits in (rank, id) order; at that n_probe the ms per
+   ``search_batch_device`` batch of 512 (CUDA events), per sync
+   ``search_batch`` and a ``torch.profiler`` split; writes through the
+   index into phase 4's flat index (a ``put_many`` of 8,192 new rows, the
+   pending tail; 10,000 deletes, tombstones; a replace), each timed, with
+   recall@10 >= 0.95 against exact flat over the live rows on phase 4's
+   queries and on queries near the new rows, no deleted id returned; an
+   explicit ``rebuild`` and an ``n_probe="auto"`` build (timed, its
+   ``tuned`` logged); full probe on config 1's corpus (n_probe >= its
+   1,563 blocks) equal to exact flat, ids in order; on config 1's corpus
+   ``Collection(index="ivf")`` (``put_matrix``, ``search_batch``, the
+   default hybrid: search + quantized) and ``Collection(compressed=True)``,
+   whose ids equal a float64 oracle over the bf16-rounded rows; every
+   kernel the phase launched (K1, K2, K6, K7) held against its plain
+   version on the operands it was given; then, after the counts were read,
+   K2 on IVF's routing at n_probe 4 and 64 (bf16 block) and 4 (f32 block)
+   against its plain version, timed against its bytes bound, with its
+   sharing logged;
 5. snapshot: the phase-3 collection written and loaded back gives the same
    ids;
 6. BASELINE config 5, exact MaxSim: 100,000 docs x 32 bf16-exact tokens x
@@ -120,7 +146,7 @@ Phases (each prints one line; any failure exits non-zero):
    timed against its plain version.
 
 The last two lines of standard output are a JSON summary of the kernels
-(each with its launches on its path and on phases 4e and 6b, max abs error
+(each with its launches on its path and on phases 4e, 4f, 4g and 6b, max abs error
 against its plain version over every check, that error on each of phases
 4e and 6b, and max relative error where the tolerance is relative, kernel /
 plain / library ms and its bound) and
@@ -196,6 +222,14 @@ HNSW_ORDER_TOL = 1e-6
 #: ``REBUILD_FRACTION`` and compact it
 HNSW_PUT_MANY, HNSW_DELETES = 8192, 10_000
 WAVE_N, WAVE_DELETES = 20_000, 5_001
+#: phase 4g: bench.py's IVF call and n_probe sweep, its recall bar (bench.py's
+#: RECALL_GATE); the writes to the 1M index (as phase 4f's); the queries of
+#: the full probe at config 1's size
+IVF_OPTS = {"n_probe": 4, "storage": "bf16"}
+IVF_SWEEP = (4, 8, 16, 32, 64)
+IVF_RECALL_MIN = 0.95
+IVF_PUT_MANY, IVF_DELETES = 8192, 10_000
+IVF_FULL_B = 16
 
 
 def log(msg: str) -> None:
@@ -221,15 +255,18 @@ def near_queries(rng, data, count, noise=0.4):
     return q / np.linalg.norm(q, axis=1, keepdims=True)
 
 
-def f64_oracle(x, ids, q, limit, chunk=1 << 17):
+def f64_oracle(x, ids, q, limit, chunk=1 << 17, renorm=True):
     """Exact cosine top-``limit + 4`` per query in float64 (chunked over
-    rows), ordered by (score desc, id asc): ``[(ids, scores)]``."""
+    rows), ordered by (score desc, id asc): ``[(ids, scores)]``. With
+    ``renorm`` False the rows score as they are (a bf16-rounded unit row
+    is a little off unit norm, and a bf16 block scores it so)."""
     q64 = q.astype(np.float64)
     q64 /= np.linalg.norm(q64, axis=1, keepdims=True)
     sims = np.empty((x.shape[0], q.shape[0]), np.float64)
     for s in range(0, x.shape[0], chunk):
         c = x[s:s + chunk].astype(np.float64)
-        c /= np.linalg.norm(c, axis=1, keepdims=True)
+        if renorm:
+            c /= np.linalg.norm(c, axis=1, keepdims=True)
         sims[s:s + chunk] = c @ q64.T
     width = limit + 4
     out = []
@@ -1484,6 +1521,269 @@ def flat_hybrid(torch, col, queries, card):
     return launches, batch_ms, busy, wall, errs
 
 
+def ivf_routing(torch, ivf, q, p):
+    """The ``[B, p]`` int32 block indices IVF's cosine routing gives the
+    queries ``q``: what ``ops.ivf.ivf_search`` hands K2 at ``n_probe`` p."""
+    from vettore_tpu_torch.ops import ivf as ops_ivf
+    from vettore_tpu_torch.ops import select
+
+    ng = ivf._bcb.shape[0]
+    crank = -ops_ivf.bf16_dots(q, ivf._bcb) + ivf._bbias[None, :]
+    return select.group_topk(crank, min(p, ng))[1].clamp_max(ng - 1).int()
+
+
+def ivf_hits_check(ivf, slots, raws, rows16, prepared):
+    """IVF results against float64: every raw score within HNSW_RAW_TOL of
+    the f64 dot of its row as the bf16 block stores it (``rows16``, by
+    position in ``ids``) with its query, hits in (rank, id) order. Returns
+    (id lists, max raw error)."""
+    got, err = [], 0.0
+    for b, (row_slots, row_raws) in enumerate(zip(slots.cpu().tolist(), raws.cpu().tolist())):
+        hits = [(ivf._block_ids[s], r) for s, r in zip(row_slots, row_raws) if s >= 0]
+        rows = rows16[[int(h[0][4:]) for h in hits]].astype(np.float64)
+        want = rows @ prepared[b].astype(np.float64)
+        err = max(err, float(np.abs(np.array([h[1] for h in hits]) - want).max()))
+        assert in_rank_id_order(hits), f"query {b}: IVF hits not in (rank, id) order"
+        got.append([h[0] for h in hits])
+    assert err <= HNSW_RAW_TOL, f"IVF raw scores off by {err}"
+    return got, err
+
+
+def k2_at(torch, fs, x, xsq, bias, q, gidx, label, card):
+    """K2 on IVF's routing ``gidx`` against its plain version (within
+    K2_ATOL), timed beside it; its bytes bound and sharing logged. Returns
+    (abs err, ms, plain ms, bound)."""
+    got = fs.rescore(x, xsq, bias, q, gidx, metric="cosine")
+    err, _rel = abs_rel_err(got, fs._rescore_ref(x, xsq, bias, q, gidx, metric="cosine"))
+    assert err <= K2_ATOL, f"K2 at {label}: err {err}"
+    k_ms = cuda_ms(torch, lambda: fs.rescore(x, xsq, bias, q, gidx, metric="cosine"))
+    plain = cuda_ms(torch, lambda: fs._rescore_ref(x, xsq, bias, q, gidx, metric="cosine"))
+    b, p = gidx.shape
+    d = x.shape[1]
+    bnd = bound(2 * b * p * 64 * d, "f32",
+                rescore_bytes(distinct_rows(gidx), d, x.element_size(), b, p, metric="cosine"))
+    log(f"  K2 at {label} [{b}, {p}] on {str(x.dtype).removeprefix('torch.')} rows: err "
+        f"{err:.3g} (atol {K2_ATOL}), {k_ms:.4f} ms vs plain {plain:.3f} ms; bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}); {sharing(gidx)} {card}")
+    return err, k_ms, plain, bnd
+
+
+def ivf_phase(torch, vt, rng, col, corpus, queries, exact, base, card):
+    """Phase 4g: the IVF index on phase 4's 1M x 768 corpus, as ``bench.py``
+    drives it (``IvfIndex.from_flat`` of phase 4's flat index, n_probe 4,
+    bf16 storage, a cold ``rebuild``), then on config 1's corpus; and
+    ``compressed=True``. ``exact`` is phase 4's exact results, ``base``
+    config 1's ``(collection, ids, data, queries, exact results)``. Writes
+    go through the IVF index into phase 4's flat index, its mirror: phase
+    4's collection is dropped after this phase. Returns the phase's numbers,
+    its launch counts and each kernel's max abs error at the shapes it ran."""
+    from vettore_tpu_torch.index.ivf import IvfIndex
+    from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.ops import ivf as ops_ivf
+    from vettore_tpu_torch.ops import maxsim as ms
+    from vettore_tpu_torch.ops.distance import normalize_rows
+    from vettore_tpu_torch.ops.transport import round_to_bf16
+
+    dev = torch.device(DEVICE)
+    flat = col.index
+    prepared = normalize_rows(queries, "l2")
+    qdev = torch.from_numpy(prepared).to(dev)
+    exact_ids = [[r.id for r in row] for row in exact]
+    rows16 = round_to_bf16(normalize_rows(corpus, "l2"))  # the bytes the bf16 block holds
+    out = {}
+    reset_counts(fs)
+    with PathCalls(fs, ms) as calls:
+        # ---- the build, cold (bench.py's call), and a second one
+        torch.cuda.synchronize()
+        targets = [(ops_ivf, "gather_lex_rows"), (ops_ivf, "kmeans_assign"),
+                   (ops_ivf, "build_blocks")]
+        with Spans(torch, targets) as spans:
+            t0 = time.perf_counter()
+            ivf = IvfIndex.from_flat(flat, dict(IVF_OPTS))
+            ivf.rebuild()
+            torch.cuda.synchronize()
+            out["build_s"] = time.perf_counter() - t0
+        out["build_split"] = {name: sec[0] for name, sec in spans.items()}
+        assert ivf._xb.dtype == torch.bfloat16 and ivf._xb.device.type == dev.type
+        t0 = time.perf_counter()
+        twin = IvfIndex.from_flat(flat, {**IVF_OPTS, "storage": "f32"})
+        twin.rebuild()
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        assert torch.equal(twin._lex, ivf._lex), "two builds permute the rows differently"
+        assert torch.equal(twin._bcb.view(torch.int16), ivf._bcb.view(torch.int16)), (
+            "two builds route by different centroids")
+        assert twin._block_ids == ivf._block_ids, "two builds differ in their block ids"
+        assert torch.equal(twin._xb.to(torch.bfloat16).view(torch.int16),
+                           ivf._xb.view(torch.int16))
+        ng = ivf._bcb.shape[0]
+        split = out["build_split"]
+        log(f"  IVF build (from_flat, n_probe 4, bf16, cold rebuild) {out['build_s']:.2f}s: "
+            f"gather {split['gather_lex_rows']:.3f}s, k-means ({ivf.params['kmeans_iters']} "
+            f"iterations) "
+            f"{split['kmeans_assign']:.3f}s, block state {split['build_blocks']:.3f}s, the rest "
+            f"(the sort, the host's block ids) {out['build_s'] - sum(split.values()):.3f}s; "
+            f"{ng} blocks of 64; a second build (f32 storage) {twin_s:.2f}s with the same "
+            f"permutation, routing centroids and block ids, bit for bit {card}")
+
+        # ---- the n_probe sweep against phase 4's exact ids; the first
+        # n_probe at the recall bar is the one timed
+        sweep, found = {}, {}
+        for p in IVF_SWEEP:
+            ivf.params["n_probe"] = p
+            slots, raws = ivf.search_batch_device(qdev, 10)
+            got, err = ivf_hits_check(ivf, slots, raws, rows16, prepared)
+            sweep[p] = recall_at(got, exact_ids)
+            log(f"  IVF n_probe {p}: recall@10 {sweep[p]:.4f} against exact flat on "
+                f"{len(queries)} queries; raw within {err:.2g} of float64; (rank, id) order")
+            if sweep[p] >= IVF_RECALL_MIN and not found:
+                found = {"p": p, "got": got}
+        assert found, f"no n_probe up to {IVF_SWEEP[-1]} reaches recall@10 {IVF_RECALL_MIN}: {sweep}"
+        p, got = found["p"], found["got"]
+        ivf.params["n_probe"] = p
+        hydrated = ivf.search_batch(prepared, 10)
+        assert [[h[0] for h in row] for row in hydrated] == got, "search_batch != device path"
+        out.update(sweep=sweep, n_probe=p)
+        out["ms"] = cuda_ms(torch, lambda: ivf.search_batch_device(qdev, 10))
+        out["sync_ms"] = host_ms(torch, lambda: ivf.search_batch(prepared, 10), reps=5)
+        out["busy"], out["wall"] = profile_runs(torch, {"ivf device": lambda: (
+            ivf.search_batch_device(qdev, 10))}, card)["ivf device"]
+        log(f"  IVF at n_probe {p}: search_batch_device B={len(queries)} {out['ms']:.3f} ms "
+            f"(CUDA events), search_batch (sync, hydrated) {out['sync_ms']:.3f} ms {card}")
+
+        # ---- writes: a tail of new rows, tombstones, a replace; rebuilds
+        new = clustered(rng, IVF_PUT_MANY, D_MAIN)
+        new_ids = [f"new-{i:05d}" for i in range(IVF_PUT_MANY)]
+        t0 = time.perf_counter()
+        ivf.put_many(list(zip(new_ids, new)))
+        torch.cuda.synchronize()
+        put_s = time.perf_counter() - t0
+        gone = [f"doc-{i:07d}" for i in rng.choice(corpus.shape[0], IVF_DELETES, replace=False)]
+        t0 = time.perf_counter()
+        for id in gone:
+            ivf.delete(id)
+        torch.cuda.synchronize()
+        delete_s = time.perf_counter() - t0
+        moved = exact_ids[0][0]  # phase 4's first query's best hit moves away
+        t0 = time.perf_counter()
+        ivf.put(moved, -prepared[0])
+        torch.cuda.synchronize()
+        replace_s = time.perf_counter() - t0
+        assert ivf._tombstoned == IVF_DELETES + 1 - len(set(gone) & {moved}) and not ivf._stale()
+        near = normalize_rows(near_queries(rng, new, B_MAIN), "l2")
+        gone_set = set(gone)
+        for label, qs in (("phase 4's", prepared), ("near the new rows", near)):
+            want = [[i for i, _ in row] for row in ivf._mirror.search_batch(qs, 10)]
+            got = [[i for i, _ in row] for row in ivf.search_batch(qs, 10)]
+            assert not gone_set & {i for row in got for i in row}, "a deleted id came back"
+            r = recall_at(got, want)
+            assert r >= IVF_RECALL_MIN, f"IVF recall@10 {r} after the writes ({label} queries)"
+            log(f"  IVF after the writes, {label} queries: recall@10 {r:.4f} against exact "
+                f"flat over the live rows")
+        assert moved not in {i for i, _ in ivf.search(prepared[0], 10)}
+        t0 = time.perf_counter()
+        ivf.rebuild()
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        assert ivf._tail is None and len(ivf._block_slot_of) == len(flat)
+        del ivf, twin
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        auto = IvfIndex.from_flat(flat, {"n_probe": "auto", "storage": "bf16"})
+        auto.rebuild()
+        torch.cuda.synchronize()
+        auto_s = time.perf_counter() - t0
+        log(f"  IVF writes: put_many of {IVF_PUT_MANY} new rows (the tail) {put_s:.3f}s, "
+            f"{IVF_DELETES} deletes (tombstones) {delete_s:.3f}s, a replace {replace_s:.4f}s; "
+            f"rebuild of {len(flat)} live rows {rebuild_s:.2f}s; an n_probe=\"auto\" build "
+            f"{auto_s:.2f}s: tuned {auto.tuned} {card}")
+        out.update(put_s=put_s, delete_s=delete_s, replace_s=replace_s, rebuild_s=rebuild_s,
+                   auto_s=auto_s, tuned=auto.tuned)
+        del auto
+        torch.cuda.empty_cache()
+
+        # ---- full probe on config 1's corpus equals exact flat
+        col3, ids3, data3, qs3, got3 = base
+        full = IvfIndex.from_flat(col3.index, {"n_probe": 65_536, "storage": "f32"})
+        prep3 = normalize_rows(qs3[:IVF_FULL_B], "l2")
+        full_hits = full.search_batch(prep3, 10)
+        assert [[i for i, _ in row] for row in full_hits] == [
+            [r.id for r in row] for row in got3[:IVF_FULL_B]], "full probe != exact flat"
+        for grow, wrow in zip(full_hits, got3):
+            assert max(abs(g[1] - w.score) for g, w in zip(grow, wrow)) <= HNSW_RAW_TOL
+        log(f"  IVF full probe on config 1 ({N_BASE}x{D_BASE}, {full._bcb.shape[0]} blocks, "
+            f"n_probe 65,536, f32): ids equal exact flat's in order on {IVF_FULL_B} queries")
+        del full
+
+        # ---- collections on config 1's corpus
+        cols = {}
+        for label, kw in (("ivf", {"index": "ivf"}), ("compressed", {"compressed": True})):
+            c = vt.Collection(name=f"config-1-{label}", dimensions=D_BASE, metric="cosine",
+                              device=dev, **kw)
+            t0 = time.perf_counter()
+            c.put_matrix(ids3, data3)
+            res = c.search_batch(qs3, limit=10)
+            torch.cuda.synchronize()
+            cols[label] = (c, res, time.perf_counter() - t0)
+        civf, ivf_res, ivf_s = cols["ivf"]
+        assert civf.index_kind == "ivf" and civf.index.built
+        r_ivf = recall_at([[r.id for r in row] for row in ivf_res],
+                          [[r.id for r in row] for row in got3])
+        hyb = civf.hybrid_search_batch(qs3, limit=10)
+        torch.cuda.synchronize()
+        assert civf.host_routes == 0, civf.host_routes
+        stored3 = normalize_rows(data3, "l2")
+        pos3 = {id: i for i, id in enumerate(ids3)}
+        herr = 0.0
+        for b, row in enumerate(hyb):
+            hits = [(r.id, r.score) for r in row]
+            assert len(hits) == 10 and in_rank_id_order(hits), f"hybrid query {b}: order"
+            want = stored3[[pos3[i] for i, _ in hits]].astype(np.float64) @ normalize_rows(
+                qs3[b:b + 1], "l2")[0].astype(np.float64)
+            herr = max(herr, float(np.abs(np.array([s for _, s in hits]) - want).max()))
+        assert herr <= SCORE_TOL, f"IVF hybrid scores off by {herr}"
+        r_hyb = recall_at([[r.id for r in row] for row in hyb], [[r.id for r in row] for row in got3])
+        log(f"  Collection(index=\"ivf\") on config 1 (defaults: n_probe 8, bf16): put_matrix + "
+            f"search_batch {ivf_s:.1f}s, recall@10 {r_ivf:.4f} against exact flat; default "
+            f"hybrid_search_batch (search + quantized, exact rerank) recall@10 {r_hyb:.4f}, "
+            f"scores within {herr:.2g} of float64, host routes 0 {card}")
+        cz, z_res, z_s = cols["compressed"]
+        assert cz.index.storage == "bf16"
+        truth16 = f64_oracle(round_to_bf16(stored3), ids3, qs3, 10, renorm=False)
+        z_swaps = sum(check_hits([(r.id, r.score) for r in row], want, 10)
+                      for row, want in zip(z_res, truth16))
+        log(f"  Collection(compressed=True) on config 1: put_matrix + search_batch {z_s:.1f}s; "
+            f"ids equal the float64 oracle over the bf16-rounded rows ({z_swaps} near-tie "
+            f"swaps), scores within {SCORE_TOL}; host routes {cz.index.host_routes} {card}")
+        out.update(recall_ivf_col=r_ivf, recall_hybrid=r_hyb)
+        torch.cuda.synchronize()
+    launches = dict(fs.LAUNCHES)
+    for name in ("gmin_scan", "rescore", "sign_scan", "extract_group_rows"):
+        assert launches[name] > 0, f"{name} not launched in phase 4g: {launches}"
+    assert fs.ROUTES["rescore"]["narrow"] == 0, fs.ROUTES
+    for c, _res, _s in cols.values():
+        c.close()
+    del cols, civf, cz
+    torch.cuda.empty_cache()
+    errs = calls.check(torch, "4g IVF", card)[0]
+    del calls
+    torch.cuda.empty_cache()
+
+    # ---- K2 at IVF's shapes, after the counts were read: a fresh build
+    ivf = IvfIndex.from_flat(flat, {**IVF_OPTS, "storage": "f32"})
+    ivf.rebuild()
+    xb16 = ivf._xb.to(torch.bfloat16)
+    k2 = {}
+    for label, x, p in (("n_probe 4", xb16, 4), ("n_probe 64", xb16, 64),
+                        ("n_probe 4, f32 build", ivf._xb, 4)):
+        k2[label] = k2_at(torch, fs, x, ivf._xsq, ivf._bias, qdev, ivf_routing(torch, ivf, qdev, p),
+                          label, card)
+    del ivf, xb16
+    torch.cuda.empty_cache()
+    out["k2"] = k2
+    return out, launches, errs
+
+
 def maxsim_subset_oracle(tokens, cand, qset, ids, limit):
     """Exact cosine MaxSim in float64 of the docs ``cand`` (rows of
     ``tokens`` [N, T, d], id order; every token live) against one query
@@ -2003,12 +2303,24 @@ def main() -> int:
     t0 = time.perf_counter()
     hybrid_launches, hybrid_ms, hybrid_busy, hybrid_wall, hybrid_errs = flat_hybrid(
         torch, col, queries, card)
-    del col
-    torch.cuda.empty_cache()
     log(f"[phase 4e] flat hybrid (funnel + quantized + search, exact rerank, batch {B_MAIN}): "
         f"ids equal phase 4's exact results, host routes 0, {hybrid_ms:.3f} ms per sync batch "
         f"(busy {hybrid_busy:.3f} ms, idle {max(0.0, 1 - hybrid_busy / hybrid_wall):.1%}) "
         f"({time.perf_counter() - t0:.1f}s)")
+
+    # ---- phase 4g: IVF on the same corpus; compressed; config 1's IVF -----
+    t0 = time.perf_counter()
+    ivf, ivf_launches, ivf_errs = ivf_phase(torch, vt, rng, col, corpus, queries, got,
+                                            (col3, ids3, data3, qs3, got3), card)
+    del col
+    torch.cuda.empty_cache()
+    log(f"[phase 4g] IVF ({N_CORPUS}x{D_MAIN} cosine, bf16, batch {B_MAIN}, limit 10): build "
+        f"{ivf['build_s']:.2f}s, two builds bit-equal; recall@10 "
+        + ", ".join(f"{r:.4f} at n_probe {p}" for p, r in ivf["sweep"].items())
+        + f"; {ivf['ms']:.3f} ms per device batch, {ivf['sync_ms']:.3f} ms per sync batch "
+        f"(busy {ivf['busy']:.3f} ms, idle {max(0.0, 1 - ivf['busy'] / ivf['wall']):.1%}); "
+        f"recall held through the writes; full probe equals exact flat at config 1; "
+        f"launches {ivf_launches} ({time.perf_counter() - t0:.1f}s)")
 
     # ---- phase 4d: BASELINE config 2, HNSW on the same corpus -------------
     t0 = time.perf_counter()
@@ -2107,7 +2419,11 @@ def main() -> int:
         ("stage_gmin_scan_fde", "adaptive_scan.cu", "flat_scan.py:380",
          {"stage_gmin_scan_fde": c5["k5_fde"]["launches"]}, c5["k5_fde"]["ms"],
          c5["k5_fde"]["plain_ms"], None, c5["k5_fde"]["bound"]),
+        # K2 at IVF's shape: the routing's 4 blocks per query of the bf16 block
+        ("rescore_ivf", "flat_scan.cu", "flat_scan.py:208", ivf_launches,
+         ivf["k2"]["n_probe 4"][1], ivf["k2"]["n_probe 4"][2], None, ivf["k2"]["n_probe 4"][3]),
     ]
+    errs["rescore_ivf"] = max(k[0] for k in ivf["k2"].values())
     # K5 on the FDE block is held to a relative tolerance, on MUVERA's
     # calls as alone
     errs["stage_gmin_scan_fde"] = c5["k5_fde"]["err"]
@@ -2126,10 +2442,14 @@ def main() -> int:
                               ("stage_gmin_scan_fde", "extract_group_rows"))
            for k, m in c5["muvera"].items()},
         # the HNSW writes, the wave build and the compaction run no hand kernel
-        "4f HNSW writes": (hnsw["writes"]["launches"], {}, ())}
+        "4f HNSW writes": (hnsw["writes"]["launches"], {}, ()),
+        "4g IVF": (ivf_launches, ivf_errs, ("gmin_scan", "gmin_scan_bf16", "rescore",
+                                            "rescore_bf16", "rescore_ivf", "sign_scan",
+                                            "extract_group_rows"))}
 
     def base(name):
-        return name.removesuffix("_bf16").removesuffix("_f32").removesuffix("_fde")
+        return (name.removesuffix("_bf16").removesuffix("_f32").removesuffix("_fde")
+                .removesuffix("_ivf"))
 
     def path_errs(name):
         return {path: path_e[base(name)] for path, (_l, path_e, path_rows) in new_paths.items()

@@ -112,10 +112,6 @@ def test_bf16_storage_view_matches_jax(metric):
 def test_unported_features_raise():
     errors = tvt.errors
     with pytest.raises(errors.InvalidIndex, match="not ported"):
-        tvt.Collection(dimensions=4, index="ivf", device="cpu")
-    with pytest.raises(errors.InvalidStore, match="not ported"):
-        tvt.Collection(dimensions=4, compressed=True, device="cpu")
-    with pytest.raises(errors.InvalidIndex, match="not ported"):
         tvt.Collection(dimensions=4, mesh=object(), device="cpu")
     with pytest.raises(errors.InvalidFlatOptions, match="unknown storage"):
         TFlat("cosine", storage="int4", device="cpu")

@@ -11,6 +11,7 @@ PORT_MODULES = (
     "vettore_tpu_torch",
     "vettore_tpu_torch._build",
     "vettore_tpu_torch.collection",
+    "vettore_tpu_torch.compat",
     "vettore_tpu_torch.convert",
     "vettore_tpu_torch.distance",
     "vettore_tpu_torch.index.flat",
@@ -18,11 +19,13 @@ PORT_MODULES = (
     "vettore_tpu_torch.index.hnsw_build",
     "vettore_tpu_torch.index.hnsw_device",
     "vettore_tpu_torch.index.hnsw_knn_build",
+    "vettore_tpu_torch.index.ivf",
     "vettore_tpu_torch.multi_vector",
     "vettore_tpu_torch.muvera",
     "vettore_tpu_torch.observability",
     "vettore_tpu_torch.ops.distance",
     "vettore_tpu_torch.ops.flat_scan",
+    "vettore_tpu_torch.ops.ivf",
     "vettore_tpu_torch.ops.maxsim",
     "vettore_tpu_torch.ops.mmr",
     "vettore_tpu_torch.ops.muvera",
@@ -32,7 +35,10 @@ PORT_MODULES = (
     "vettore_tpu_torch.ops.scan_host",
     "vettore_tpu_torch.ops.select",
     "vettore_tpu_torch.ops.topk",
+    "vettore_tpu_torch.ops.transport",
+    "vettore_tpu_torch.store.columnar",
     "vettore_tpu_torch.store.snapshot",
+    "vettore_tpu_torch.synth",
 )
 
 

@@ -2,10 +2,11 @@
 
 The port of the JAX package ``vettore_tpu`` (which stays the reference) to
 PyTorch, with hand-written CUDA kernels for the scans. It has the same public
-API for the slices ported so far — ``Collection`` with the exact flat and
-HNSW indexes, f32, bf16 and int8 storage, the funnel, quantized,
-multi-vector (exact and MUVERA) and hybrid search modes, MMR, snapshots — and
-returns the same results, including the ``(rank, id)`` tie order. The device is explicit: ``device="cuda"`` (the
+API for the slices ported so far — ``Collection`` with the exact flat,
+HNSW and IVF indexes, f32, bf16 and int8 storage, ``compressed=True`` and
+the columnar store, the funnel, quantized, multi-vector (exact and MUVERA)
+and hybrid search modes, MMR, snapshots, the compat ``DB`` and ``synth`` —
+and returns the same results, including the ``(rank, id)`` tie order. The device is explicit: ``device="cuda"`` (the
 default) needs a CUDA device; pass ``device="cpu"`` to run on the CPU.
 
 Quick start::
@@ -24,6 +25,7 @@ Quick start::
 
 from . import distance, errors, multi_vector, muvera, observability
 from .collection import Collection, load_snapshot
+from .compat import DB
 from .embedding import Embedding, Result
 from .index.flat import FlatIndex
 from .index.hnsw import HnswIndex
@@ -35,6 +37,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Collection",
+    "DB",
     "load_snapshot",
     "Embedding",
     "Result",

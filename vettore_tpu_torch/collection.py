@@ -14,14 +14,17 @@ is always rebuildable from the store. Search modes:
 * ``hybrid_search``       — a union of candidate generators (funnel,
   quantized, the index's search, the HNSW beam) + an exact or MaxSim rerank
 
-The index is the exact flat index (``index="flat"``) or the HNSW graph
+The index is the exact flat index (``index="flat"``), the HNSW graph
 (``index="hnsw"``: host inserts, and the kNN or wave bulk build, writes to
 the bulk graph and the batched beam search on the collection's device,
-``index/hnsw*.py``); ``attach_index``
+``index/hnsw*.py``) or the IVF index (``index="ivf"``: k-means routing and
+K2 over the probed blocks, ``index/ivf.py``); ``attach_index``
 swaps in a prebuilt one (e.g. a graph from ``HnswIndex.load_graph``).
+``compressed=True`` keeps the flat index's device block in bf16 and the
+canonical records in a bf16 columnar store (``store/columnar.py``);
+``store="columnar"`` asks for that store at f32.
 
-Not ported yet: the IVF index, mesh sharding and ``compressed=True`` (it
-needs the columnar store). Asking for any of them raises with a message that
+Not ported yet: mesh sharding. Asking for it raises with a message that
 says so.
 
 Option validation is strict (unknown/duplicate options rejected,
@@ -43,6 +46,7 @@ from .embedding import Embedding, Result
 from .index.base import Index, valid_index
 from .index.flat import _ROW_TILE, FlatIndex, resolve_device
 from .index.hnsw import HnswIndex
+from .index.ivf import IvfIndex
 from .metrics import (
     F32_MAX,
     MAX_USIZE,
@@ -60,6 +64,7 @@ from .ops.distance import NORMALIZATIONS, normalize_rows, validate_vector
 from .ops.packing import pack_signs_u32, pack_signs_u64_rows, words_for
 from .ops.pipeline import _BIG32
 from .store.base import Store, valid_store
+from .store.columnar import ColumnarStore
 from .store.memory import MemoryStore
 
 SNAPSHOT_VERSION = 1
@@ -414,13 +419,19 @@ class _VectorCache:
         cache — it keeps the hybrid's index generators on the device.
         ``None`` for a custom index without a device slot vocabulary. An
         HNSW index's table reads its device graph's ids, so callers run the
-        index's device search (which refreshes that graph) first."""
-        key = ("slots", id(index))
+        index's device search (which refreshes that graph) first. An index
+        with a ``hybrid_id_vocab`` (IVF) renumbers its slots when it
+        rebuilds, so its table is keyed by its version and build count too."""
+        key, index_ids = ("slots", id(index)), None
+        vocab = getattr(index, "hybrid_id_vocab", None)
+        if callable(vocab) and not isinstance(index, FlatIndex):
+            index_ids = vocab()  # builds first where the index is stale
+            key += (getattr(index, "_version", None), getattr(index, "_builds", None))
         if key in self._tables:
             return self._tables[key]
         if isinstance(index, FlatIndex):
             index_ids = index._ids
-        else:
+        elif index_ids is None:
             graph = getattr(index, "_bulk", None) or getattr(index, "_device", None)
             index_ids = getattr(graph, "ids", None)
         if index_ids is None:
@@ -508,17 +519,16 @@ class Collection:
 
     @staticmethod
     def _make_index(index, metric, index_options, compressed=False, *, device):
-        if compressed:
-            # the JAX package pairs compressed collections with a bf16
-            # columnar store, which is not ported yet
-            raise E.InvalidStore("compressed=True (bf16 columnar store) is not ported yet")
         if index == "flat":
-            return FlatIndex(metric, index_options or None, device=device)
+            # the reference's `compressed` trades CPU for ETS memory; here
+            # the device block is stored in bf16 (half the card's memory,
+            # K1's bf16 products)
+            return FlatIndex(metric, index_options or None,
+                             storage="bf16" if compressed else "f32", device=device)
         if index == "hnsw":
             return HnswIndex(metric, index_options, device=device)
-        if isinstance(index, str):
-            raise E.InvalidIndex(f"index {index!r} is not ported yet (only 'flat' and "
-                                 "'hnsw' are)")
+        if index == "ivf":
+            return IvfIndex(metric, index_options, device=device)
         if isinstance(index, type):
             instance = index(metric, index_options)
         else:
@@ -529,10 +539,17 @@ class Collection:
 
     @staticmethod
     def _make_store(store, config):
+        compressed = bool(config.get("compressed"))
         if store == "memory":
+            if compressed:
+                # the reference's `compressed` cuts ETS (host) RAM
+                # (store/ets.ex:273-282); the host analog is the columnar
+                # store with bf16 halves — same rounding the compressed
+                # device block scores with
+                return ColumnarStore(config, dtype="bf16")
             return MemoryStore(config)
         if store == "columnar":
-            raise E.InvalidStore("the columnar store is not ported yet")
+            return ColumnarStore(config, dtype="bf16" if compressed else "f32")
         if isinstance(store, type):
             instance = store(config)
         else:
@@ -621,6 +638,8 @@ class Collection:
                 self.index_kind = "flat"
             elif isinstance(index, HnswIndex):
                 self.index_kind = "hnsw"
+            elif isinstance(index, IvfIndex):
+                self.index_kind = "ivf"
             else:
                 self.index_kind = "custom"
             self._bump()
@@ -1482,9 +1501,13 @@ class Collection:
 
     def _default_generators(self) -> list:
         """collection.ex:513-514: hnsw collections default to
-        [:hnsw, :quantized], everything else to [:funnel, :quantized]."""
+        [:hnsw, :quantized], everything else to [:funnel, :quantized]; ivf
+        collections (an extension over the reference) pair their index
+        generator with the quantized prefilter."""
         if self.index_kind == "hnsw":
             return ["hnsw", "quantized"]
+        if self.index_kind == "ivf":
+            return ["search", "quantized"]
         return ["funnel", "quantized"]
 
     def _hybrid_single(self, q, limit, generators, rerank) -> list:
@@ -1762,7 +1785,8 @@ def load_snapshot(path: str, *, name=None, index=None, index_options=None, score
         raise E.InvalidSnapshot("invalid snapshot path")
     _reject_mesh(mesh)
     if store == "columnar":
-        raise E.InvalidStore("the columnar store is not ported yet")
+        # ColumnarStore.load_snapshot picks bf16 itself for compressed configs
+        store = ColumnarStore
     store_cls = MemoryStore if store is None else store
     if not (isinstance(store_cls, type) and callable(getattr(store_cls, "load_snapshot", None))):
         raise E.InvalidStore(f"invalid store: {store!r}")

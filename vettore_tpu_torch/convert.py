@@ -17,7 +17,10 @@ array is recognised by its dtype's name and widened bit for bit.
   block (the operands of the MaxSim search, ``ops/maxsim.py``);
 * :func:`hnsw_graph_state` — a JAX HNSW device graph (a bulk build's
   ``BulkGraph`` or a host graph's ``DeviceGraph`` snapshot) as this
-  package's, so both packages' beam searches run on one graph.
+  package's, so both packages' beam searches run on one graph;
+* :func:`ivf_state` — a built JAX ``IvfIndex``'s routing structure and
+  pending tail installed in this package's ``IvfIndex``, so both packages
+  probe the same blocks.
 
 Snapshots need no conversion: both packages write and read the same file
 format (``store/snapshot.py``).
@@ -210,3 +213,45 @@ def hnsw_graph_state(graph, *, device):
         out.levels = mut.levels_np
         out._mut = mut
     return out
+
+
+def ivf_state(index, *, xb, xsq, bias, lex, bcb, csq, bbias, block_ids, tuned=None,
+              tail=None, tombstoned=0):
+    """Installs a built JAX ``IvfIndex``'s state in ``index``, this
+    package's ``IvfIndex`` whose mirror holds the same records, and returns
+    it. The arrays are the JAX index's ``_xb`` (``[capb, d]`` f32 or bf16,
+    kept in its dtype), ``_xsq``, ``_bias`` and ``_lex`` (``[capb]``),
+    ``_bcb`` (``[capb/64, d]`` bf16), ``_csq`` and ``_bbias``
+    (``[capb/64]``); ``block_ids`` its ``_block_ids`` (``None`` for a pad or
+    tombstoned slot), ``tuned`` its ``tuned``, ``tombstoned`` its
+    ``_tombstoned`` and ``tail`` its pending tail as ``(ids, host_x,
+    valid)`` (see :func:`flat_index_from_numpy`) or None. The build is
+    current afterwards: the next search probes these blocks."""
+    dev = index.device
+    xb_t, bcb_t = _block(xb), _block(bcb)
+    capb, ngb = xb_t.shape[0], bcb_t.shape[0]
+    if capb != 64 * ngb or bcb_t.dtype != torch.bfloat16:
+        raise DimensionMismatch(f"xb has {capb} rows for {ngb} bf16 routing centroids")
+    rows = {name: torch.from_numpy(_as_f32(a).reshape(-1))
+            for name, a in (("xsq", xsq), ("bias", bias), ("csq", csq), ("bbias", bbias))}
+    lex_t = torch.from_numpy(np.array(lex, dtype=np.int32).reshape(-1))
+    block_ids = [None if i is None else str(i) for i in block_ids]
+    for name, t, want in (("xsq", rows["xsq"], capb), ("bias", rows["bias"], capb),
+                          ("lex", lex_t, capb), ("csq", rows["csq"], ngb),
+                          ("bbias", rows["bbias"], ngb), ("block_ids", block_ids, capb)):
+        if len(t) != want:
+            raise DimensionMismatch(f"{name} has {len(t)} rows, not {want}")
+    slot_of = {id: s for s, id in enumerate(block_ids) if id is not None}
+    if any(id not in index._mirror._slot_of for id in slot_of):
+        raise InvalidVector("the block ids must be records of the index's mirror")
+    index._xb, index._bcb, index._lex = xb_t.to(dev), bcb_t.to(dev), lex_t.to(dev)
+    index._xsq, index._bias = rows["xsq"].to(dev), rows["bias"].to(dev)
+    index._csq, index._bbias = rows["csq"].to(dev), rows["bbias"].to(dev)
+    index._block_ids, index._block_slot_of = block_ids, slot_of
+    index._tombstoned = int(tombstoned)
+    index._tail = None if tail is None else flat_index_from_numpy(index.metric, *tail,
+                                                                   device=dev)
+    index.tuned = None if tuned is None else dict(tuned)
+    index._built_version = index._version
+    index._builds += 1
+    return index

@@ -139,6 +139,7 @@ class FlatIndex(Index):
         self._free: list[int] = []
         self._device = None
         self._device_scan = None
+        self._lex_order_np = None
         self._dirty = True
         #: queries answered by the f64 host oracle (overflow or tie spill)
         self.host_routes = 0
@@ -326,6 +327,7 @@ class FlatIndex(Index):
         view._slot_of = self._slot_of
         view._free = self._free
         self._sync_device()
+        view._lex_order_np = self._lex_order_np
         x, valid, lex_order = self._device
         if storage == "int8":
             if x.dtype == torch.int8:
@@ -354,6 +356,9 @@ class FlatIndex(Index):
         order = live[np.argsort(id_arr, kind="stable")] if live.size else live
         invalid = np.flatnonzero(~self._valid)
         lex_order = np.concatenate([order, invalid]).astype(np.int64)
+        # kept on the host for consumers that need the live slots in id
+        # order without re-sorting a million id strings (IvfIndex.rebuild)
+        self._lex_order_np = lex_order
         lex_rank = np.zeros(self._cap, dtype=np.int32)
         lex_rank[lex_order] = np.arange(self._cap, dtype=np.int32)
         bias = np.where(self._valid, np.float32(0.0), np.float32(np.inf)).astype(np.float32)
