@@ -110,9 +110,25 @@ def test_bf16_storage_view_matches_jax(metric):
 
 
 def test_unported_features_raise():
+    """Mesh sharding is ported: a flat collection on ``["cpu"] * 2`` answers
+    as the single-device one, and a ``device=`` other than the mesh's first
+    device raises. An unknown storage mode still raises."""
+    from vettore_tpu_torch.parallel import MeshFlatIndex, make_mesh
+
     errors = tvt.errors
-    with pytest.raises(errors.InvalidIndex, match="not ported"):
-        tvt.Collection(dimensions=4, mesh=object(), device="cpu")
+    mesh = make_mesh(["cpu"] * 2)
+    rng = np.random.default_rng(2)
+    data = rng.normal(size=(40, 4)).astype(np.float32)
+    ids = [f"m-{i:02d}" for i in range(40)]
+    col = tvt.Collection(dimensions=4, mesh=mesh)
+    single = tvt.Collection(dimensions=4, device="cpu")
+    for c in (col, single):
+        c.put_matrix(ids, data)
+    assert isinstance(col.index, MeshFlatIndex) and col.device == mesh.first
+    got, want = col.search_batch(data[:3], limit=5), single.search_batch(data[:3], limit=5)
+    assert [[r.id for r in row] for row in got] == [[r.id for r in row] for row in want]
+    with pytest.raises(errors.VettoreError, match="first device"):
+        tvt.Collection(dimensions=4, mesh=mesh, device="meta")
     with pytest.raises(errors.InvalidFlatOptions, match="unknown storage"):
         TFlat("cosine", storage="int4", device="cpu")
 

@@ -150,5 +150,17 @@ def test_snapshot_restores_an_hnsw_collection(tmp_path):
 
 
 def test_unported_hnsw_features_raise():
-    with pytest.raises(tvt.errors.InvalidIndex, match="not ported"):
-        tvt.Collection(dimensions=4, index="hnsw", mesh=object(), device="cpu")
+    """Mesh sharding is ported: an HNSW collection on ``["cpu"] * 2`` finds
+    each stored row first, and a ``device=`` other than the mesh's first
+    device raises."""
+    from vettore_tpu_torch.parallel import MeshHnswIndex, make_mesh
+
+    mesh = make_mesh(["cpu"] * 2)
+    ids, data, _queries = _corpus(200, seed=4)
+    col = tvt.Collection(dimensions=data.shape[1], index="hnsw", mesh=mesh)
+    col.put_matrix(ids, data)
+    assert isinstance(col.index, MeshHnswIndex)
+    hits = col.search_batch(data[:5], limit=3)
+    assert [row[0].id for row in hits] == ids[:5]
+    with pytest.raises(tvt.errors.VettoreError, match="first device"):
+        tvt.Collection(dimensions=4, index="hnsw", mesh=mesh, device="meta")

@@ -8,7 +8,9 @@ Levels, slot order, lex ranks and ``up_index`` must be bit-equal. The
 adjacency may differ only in rows where f32 sums taken in another order
 swap neighbours whose float64 ranks to the row lie within 1e-6; recall@10
 of the two graphs within 0.01. The beam on the JAX graph, carried across by
-``convert.hnsw_graph_state``, gives the JAX package's ids.
+``convert.hnsw_graph_state``, gives the JAX package's ids. On a mesh
+shard's corpus of sparse clusters (10,240 x 64, clusters of 25 rows) the
+two graphs agree as above and both fall short of the 0.95 recall bar.
 """
 
 import numpy as np
@@ -220,3 +222,38 @@ def test_auto_routes_by_scale(monkeypatch, small_buckets):
     index.BULK_THRESHOLD = 2
     index.put_many((f"a-{i:04d}", v) for i, v in enumerate(data))
     assert calls["knn"] == 1 and index._bulk is not None
+
+
+def _sparse_clusters(n, d, per, seed):
+    """Unit rows in Gaussian clusters of ``per`` rows on average (sigma
+    0.4/sqrt(d), ``chip_smoke.py``'s generator) and 128 queries near
+    rows."""
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((n // per, d)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    x = c[rng.integers(0, len(c), n)] + (0.4 / np.sqrt(d)) * rng.standard_normal(
+        (n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.integers(0, n, 128)] + (0.1 / np.sqrt(d)) * rng.standard_normal(
+        (128, d)).astype(np.float32)
+    return x, q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+def test_sparse_clusters_fall_short_in_both_packages(small_buckets):
+    """A mesh shard's rows: clusters of 25 rows, smaller than a 64-row
+    block and more of them than blocks (each shard of a clustered corpus
+    holds a fraction of every cluster). With config 2's options both
+    packages build the same kNN graph, and its recall@10 falls short of the
+    0.95 bar in both, equal within 0.01: the shortfall is the build's, not
+    the port's. A fix of the build turns the last assertion."""
+    opts = {"m": 16, "m0": 32, "ef_construction": 100, "ef_search": 64, "build": "knn"}
+    x, q = _sparse_clusters(10_240, 64, 25, seed=5)
+    ids = [f"s-{i:05d}" for i in range(len(x))]
+    t, j = TorchHnsw("cosine", opts, device="cpu"), JaxHnsw("cosine", opts)
+    for index in (t, j):
+        index.BULK_THRESHOLD = 2
+        index.put_many(zip(ids, x))
+    _assert_graphs_agree("cosine", j._bulk, t._bulk)
+    rec_t, rec_j = _recall(t, ids, x, q), _recall(j, ids, x, q)
+    assert abs(rec_t - rec_j) <= 0.01
+    assert rec_t < 0.95 and rec_j < 0.95, (rec_t, rec_j)

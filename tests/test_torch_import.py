@@ -36,6 +36,13 @@ PORT_MODULES = (
     "vettore_tpu_torch.ops.select",
     "vettore_tpu_torch.ops.topk",
     "vettore_tpu_torch.ops.transport",
+    "vettore_tpu_torch.parallel",
+    "vettore_tpu_torch.parallel.adaptive_mesh",
+    "vettore_tpu_torch.parallel.collection_mesh",
+    "vettore_tpu_torch.parallel.cost",
+    "vettore_tpu_torch.parallel.hnsw_mesh",
+    "vettore_tpu_torch.parallel.ivf_mesh",
+    "vettore_tpu_torch.parallel.mesh",
     "vettore_tpu_torch.store.columnar",
     "vettore_tpu_torch.store.snapshot",
     "vettore_tpu_torch.synth",

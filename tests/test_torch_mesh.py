@@ -1,0 +1,212 @@
+"""The port's mesh (``vettore_tpu_torch/parallel/mesh.py``) against the JAX
+package's and against the single-device port, on the CPU.
+
+``make_mesh`` over ``["cpu"] * n``: its grid, repeated devices and the
+``data`` error. ``ShardedFlat``: the cases of ``tests/test_mesh.py`` (three
+metrics, ties across shard boundaries, uneven rows, the merge's cost model)
+over S in {1, 2, 3, 4, 8} virtual CPU shards and data in {1, 2}, against
+the single-device ``FlatIndex`` (same ids in order, raws within 1e-5
+relative) and against JAX's ``ShardedFlat`` on a 2-device JAX mesh (the
+same ids, raws within 1e-5). With the fused threshold lowered the shards
+run the kernel route (K1 + K2's plain versions on the CPU); a batch whose
+fused search is not ``ok`` (a 64-way tie) reruns on the plain scan and is
+counted.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from vettore_tpu.parallel import ShardedFlat as JShardedFlat
+from vettore_tpu.parallel import make_mesh as jmake_mesh
+from vettore_tpu_torch.index import flat as tflat
+from vettore_tpu_torch.index.flat import FlatIndex
+from vettore_tpu_torch.ops import flat_scan
+from vettore_tpu_torch.parallel import ShardedFlat, make_mesh, sharded_search
+from vettore_tpu_torch.parallel.cost import expected_merge_bytes, gathered_bytes
+
+torch.set_num_threads(2)
+
+METRICS = ("cosine", "l2", "inner_product")
+LAYOUTS = [(s, d) for s in (1, 2, 3, 4, 8) for d in (1, 2)]
+
+
+def corpus(n=100, d=16, seed=3):
+    rng = np.random.default_rng(seed)
+    vectors = rng.normal(size=(n, d)).astype(np.float32)
+    ids = [f"doc-{i:03d}" for i in range(n)]
+    return ids, vectors
+
+
+def queries(count=5, d=16, seed=7):
+    return np.random.default_rng(seed).normal(size=(count, d)).astype(np.float32)
+
+
+def cpu_mesh(shards, data=1):
+    return make_mesh(["cpu"] * (shards * data), data=data)
+
+
+def single(metric, ids, vectors):
+    index = FlatIndex(metric, device="cpu")
+    index.put_many(zip(ids, vectors))
+    return index
+
+
+def assert_hits(got, want, rel=1e-5):
+    """The same ids in order; raws within ``rel`` relative (min 1)."""
+    assert [[h[0] for h in row] for row in got] == [[h[0] for h in row] for row in want]
+    for g_row, w_row in zip(got, want):
+        for (_, g), (_, w) in zip(g_row, w_row):
+            assert abs(g - w) <= rel * max(1.0, abs(w))
+
+
+@pytest.mark.parametrize("devices,data,grid", [
+    (["cpu"], 1, [["cpu"]]),
+    (["cpu"] * 4, 1, [["cpu"] * 4]),
+    (["cpu"] * 4, 2, [["cpu"] * 2, ["cpu"] * 2]),
+    (["cpu"] * 8, 4, [["cpu"] * 2] * 4),
+])
+def test_make_mesh_grid(devices, data, grid):
+    mesh = make_mesh(devices, data=data)
+    assert [[str(d) for d in row] for row in mesh.devices] == grid
+    assert mesh.shape == {"data": data, "shard": len(grid[0])}
+    assert mesh.first == torch.device("cpu")
+    assert mesh.distinct() == [torch.device("cpu")]
+
+
+@pytest.mark.parametrize("n,data", [(3, 2), (4, 3), (0, 1)])
+def test_make_mesh_data_must_divide(n, data):
+    with pytest.raises(ValueError, match="not divisible"):
+        make_mesh(["cpu"] * n, data=data)
+
+
+def test_make_mesh_without_devices_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+
+
+def test_repeated_devices_share_one_tensor_per_device():
+    mesh = cpu_mesh(2, data=2)
+    blocks = mesh.shard_rows(torch.arange(8.0).reshape(8, 1))
+    assert blocks.rows == 4
+    # both data rows hold shard s on the same device: one tensor
+    assert blocks.shard(0, 0) is blocks.shard(0, 1)
+    assert torch.equal(blocks.shard(1, 1)[:, 0], torch.arange(4.0, 8.0))
+
+
+@pytest.fixture(scope="module")
+def jax_results():
+    """JAX's ShardedFlat on a 2-device mesh, per metric (one compile each)."""
+    ids, vectors = corpus()
+    mesh = jmake_mesh(jax.devices()[:2])
+    return {m: JShardedFlat(m, mesh, ids, vectors).search_batch(queries(), 10)
+            for m in METRICS}
+
+
+@pytest.mark.parametrize("shards,data", LAYOUTS)
+@pytest.mark.parametrize("metric", METRICS)
+def test_sharded_equals_single_device_and_jax(metric, shards, data, jax_results):
+    ids, vectors = corpus()
+    sharded = ShardedFlat(metric, cpu_mesh(shards, data), ids, vectors)
+    got = sharded.search_batch(queries(), 10)
+    want = single(metric, ids, vectors).search_batch(queries(), 10)
+    assert_hits(got, want)
+    assert_hits(got, jax_results[metric])
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+def test_sharded_tie_break_matches(shards):
+    # duplicate vectors: ids order across shard boundaries, as in JAX
+    ids = [f"t-{i:02d}" for i in range(64)]
+    vectors = np.ones((64, 4), dtype=np.float32)
+    sharded = ShardedFlat("l2", cpu_mesh(shards), ids, vectors)
+    hits = sharded.search_batch(np.ones((1, 4), dtype=np.float32), 10)[0]
+    assert [h[0] for h in hits] == ids[:10]
+    jmesh = jmake_mesh(jax.devices()[:2])
+    jhits = JShardedFlat("l2", jmesh, ids, vectors).search_batch(np.ones((1, 4), np.float32), 10)
+    assert [h[0] for h in hits] == [h[0] for h in jhits[0]]
+
+
+@pytest.mark.parametrize("shards", [3, 8])
+def test_uneven_rows_pad(shards):
+    ids, vectors = corpus(n=13)
+    sharded = ShardedFlat("cosine", cpu_mesh(shards), ids, vectors)
+    hits = sharded.search_batch(vectors[3][None, :], 5)[0]
+    assert hits[0][0] == "doc-003"
+    assert len(hits) == 5
+    # every shard pads to whole 64-row groups
+    assert sharded._x.rows % flat_scan.GROUP == 0
+
+
+@pytest.mark.parametrize("data,k", [(1, 5), (2, 10)])
+def test_merge_cost_model(data, k):
+    """The stated merge cost model equals the bytes the gathers moved, with
+    int32 lex and slot planes (JAX's ``test_ici_merge_cost_model``)."""
+    ids, vectors = corpus(n=64)
+    mesh = cpu_mesh(4, data)
+    sharded = ShardedFlat("cosine", mesh, ids, vectors)
+    b = 4
+    got = gathered_bytes(mesh, sharded_search, mesh, sharded, torch.from_numpy(vectors[:b]), k=k)
+    assert got == expected_merge_bytes(mesh.shape["shard"], b // data, k)
+
+
+def test_sharded_search_refuses_another_mesh():
+    ids, vectors = corpus(n=16)
+    sharded = ShardedFlat("cosine", cpu_mesh(2), ids, vectors)
+    with pytest.raises(ValueError, match="another mesh"):
+        sharded_search(cpu_mesh(2), sharded, torch.from_numpy(vectors[:2]), k=3)
+
+
+def test_invalidate_ids_masks_rows():
+    ids, vectors = corpus()
+    sharded = ShardedFlat("cosine", cpu_mesh(4), ids, vectors)
+    reference = single("cosine", ids, vectors)
+    sharded.invalidate_ids(["doc-003", "doc-077", "missing"])
+    reference.delete("doc-003")
+    reference.delete("doc-077")
+    assert_hits(sharded.search_batch(vectors[[3, 77]], 10), reference.search_batch(vectors[[3, 77]], 10))
+
+
+@pytest.fixture
+def fused_shards(monkeypatch):
+    """Shards of 64 rows and more take the kernel route (on the CPU, the
+    kernels' plain versions)."""
+    monkeypatch.setattr(tflat, "FUSED_ROWS_MIN", 64)
+    calls = {"n": 0}
+    real = flat_scan.fused_flat_search
+
+    def counted(*args, **kwargs):
+        calls["n"] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(flat_scan, "fused_flat_search", counted)
+    return calls
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("shards,data", [(2, 1), (3, 2), (4, 1)])
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_kernel_route_equals_single_device(fused_shards, metric, shards, data, storage):
+    ids, vectors = corpus(n=700)
+    sharded = ShardedFlat(metric, cpu_mesh(shards, data), ids, vectors, storage=storage)
+    reference = FlatIndex(metric, storage=storage, device="cpu")
+    reference.put_many(zip(ids, vectors))
+    got = sharded.search_batch(queries(), 10)
+    assert fused_shards["n"] == shards * data
+    assert sharded.reruns == 0
+    assert_hits(got, reference.search_batch(queries(), 10), rel=1e-5 if storage == "f32" else 1e-2)
+
+
+def test_fused_tie_spill_reruns_on_the_plain_scan(fused_shards):
+    """A 64-way tie at every shard's k-th place spills past the fused
+    slack: each shard batch reruns on the plain scan, whose (rank, id)
+    order is exact, and is counted."""
+    ids = [f"t-{i:03d}" for i in range(256)]
+    vectors = np.ones((256, 4), dtype=np.float32)
+    sharded = ShardedFlat("l2", cpu_mesh(2), ids, vectors)
+    hits = sharded.search_batch(np.ones((1, 4), dtype=np.float32), 10)[0]
+    assert [h[0] for h in hits] == ids[:10]
+    assert fused_shards["n"] == 2 and sharded.reruns == 2

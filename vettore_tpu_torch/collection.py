@@ -24,8 +24,10 @@ swaps in a prebuilt one (e.g. a graph from ``HnswIndex.load_graph``).
 canonical records in a bf16 columnar store (``store/columnar.py``);
 ``store="columnar"`` asks for that store at f32.
 
-Not ported yet: mesh sharding. Asking for it raises with a message that
-says so.
+``mesh=`` (``parallel.make_mesh``) shards the index and the scan cache by
+rows across a grid of devices (``parallel/``); the collection's own
+single-device work (queries, the hybrid's union, results) runs on the
+mesh's first device.
 
 Option validation is strict (unknown/duplicate options rejected,
 collection.ex:1116-1157); score/distance semantics follow
@@ -63,6 +65,10 @@ from .ops import pipeline as pipe
 from .ops.distance import NORMALIZATIONS, normalize_rows, validate_vector
 from .ops.packing import pack_signs_u32, pack_signs_u64_rows, words_for
 from .ops.pipeline import _BIG32
+from .parallel import adaptive_mesh as amesh
+from .parallel.collection_mesh import MeshFlatIndex, MeshHnswIndex
+from .parallel.ivf_mesh import MeshIvfIndex
+from .parallel.mesh import pad_batch
 from .store.base import Store, valid_store
 from .store.columnar import ColumnarStore
 from .store.memory import MemoryStore
@@ -81,9 +87,19 @@ def _reject_extra(extra: dict):
         raise E.UnsupportedOption(next(iter(extra)))
 
 
-def _reject_mesh(mesh):
-    if mesh is not None:
-        raise E.InvalidIndex("mesh sharding is not ported yet")
+def _collection_device(device, mesh) -> torch.device:
+    """The device of a collection's single-device work: ``device`` (default
+    ``"cuda"``), or on a mesh the mesh's first device, which a ``device``
+    given beside the mesh must name."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    if device is not None:
+        dev = resolve_device(device)
+        first = mesh.first
+        if dev.type != first.type or (dev.index or 0) != (first.index or 0):
+            raise E.VettoreError(
+                f"device {dev} is not the mesh's first device {first}", reason="invalid_device")
+    return mesh.first
 
 
 def _validate_candidates(candidates, limit):
@@ -151,7 +167,7 @@ class _VectorCache:
     a stable selection resolves equal-rank ties to the smallest id with no
     per-query gather through a lex permutation."""
 
-    def __init__(self, records, dimensions, device):
+    def __init__(self, records, dimensions, device, mesh=None):
         self.n = len(records)
         ids = []
         seen = set()
@@ -167,6 +183,11 @@ class _VectorCache:
         self.ids = [ids[i] for i in order]
         self.by_id = {id: r for id, r in zip(self.ids, self.records)}
         self.cap = _cap_at_least(self.n)
+        self.mesh = mesh
+        if mesh is not None:
+            # equal shard rows, each a multiple of the kernels' 64-row group
+            unit = mesh.shape["shard"] * flat_scan.GROUP
+            self.cap = -(-self.cap // unit) * unit
         self.dimensions = dimensions
         self.device = device
         self._x = None
@@ -189,7 +210,16 @@ class _VectorCache:
             self._slot_of = {id: i for i, id in enumerate(self.ids)}
         return self._slot_of
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
+    @property
+    def n_loc(self) -> int:
+        """Rows per shard on a mesh (the whole cache without one)."""
+        return self.cap // self.mesh.shape["shard"] if self.mesh is not None else self.cap
+
+    def _put(self, arr):
+        """A host block on the device, or row-sharded over the mesh
+        (``parallel.mesh.Blocks``)."""
+        if self.mesh is not None:
+            return self.mesh.shard_rows(arr)
         return torch.from_numpy(arr).to(self.device)
 
     def _stack_vectors(self) -> np.ndarray:
@@ -368,7 +398,12 @@ class _VectorCache:
         return self._set_mv(tokens, counts)
 
     def _set_mv(self, tokens: np.ndarray, counts: np.ndarray):
-        self._mv = (maxsim_ops.put_token_block(tokens, self.device), self._put(counts))
+        if self.mesh is not None:
+            # bf16 when the whole block is lossless, then row-sharded
+            block = self.mesh.shard_rows(maxsim_ops.put_token_block(tokens, "cpu"))
+        else:
+            block = maxsim_ops.put_token_block(tokens, self.device)
+        self._mv = (block, self._put(counts))
         return self._mv
 
     def token_norms(self):
@@ -376,7 +411,9 @@ class _VectorCache:
         ``(tsq, tinv)`` per token row, computed once per block and dropped
         with it (a mutation makes a new cache)."""
         if self._mv_norms is None:
-            self._mv_norms = maxsim_ops.token_norms(self.multi_vectors()[0])
+            tokens = self.multi_vectors()[0]
+            self._mv_norms = (tokens.map(maxsim_ops.token_norms) if self.mesh is not None
+                              else maxsim_ops.token_norms(tokens))
         return self._mv_norms
 
     def signs(self) -> torch.Tensor:
@@ -384,7 +421,12 @@ class _VectorCache:
         on the device from a transient device copy of the packed words (only
         the block stays resident)."""
         if self._signs is None:
-            self._signs = pipe.signs_from_bits(self.bits().to(self.device), d=self.dimensions)
+            if self.mesh is not None:
+                self._signs = self.mesh.shard_rows(self.bits()).map(
+                    lambda words: pipe.signs_from_bits(words, d=self.dimensions))
+            else:
+                self._signs = pipe.signs_from_bits(self.bits().to(self.device),
+                                                   d=self.dimensions)
         return self._signs
 
     def stage_xsq(self, dims: int) -> torch.Tensor:
@@ -394,7 +436,8 @@ class _VectorCache:
         already masks them)."""
         if dims not in self._stage_xsq:
             x, _valid = self.vectors()
-            self._stage_xsq[dims] = _prefix_xsq(x, dims=dims)
+            self._stage_xsq[dims] = (x.map(lambda t: _prefix_xsq(t, dims=dims))
+                                     if self.mesh is not None else _prefix_xsq(x, dims=dims))
         return self._stage_xsq[dims]
 
     def fde(self, cfg):
@@ -446,7 +489,8 @@ class _VectorCache:
             table = np.where(self._ids_np[posc] == src, posc, _BIG32).astype(np.int32)
         else:
             table = np.full(len(src), _BIG32, dtype=np.int32)
-        self._tables[key] = self._put(table)
+        # on the collection's device, also on a mesh: the union is there
+        self._tables[key] = torch.from_numpy(table).to(self.device)
         return self._tables[key]
 
 
@@ -456,7 +500,10 @@ class Collection:
     ``device`` (a ``torch.device`` or a string, default ``"cuda"``) is where
     the index's vector block lives and where searches run. ``"cuda"`` needs
     a CUDA device and raises when there is none; pass ``device="cpu"`` to
-    run on the CPU."""
+    run on the CPU. ``mesh`` (``parallel.make_mesh``) shards the index and
+    the scan cache across the mesh's devices; the collection's own work then
+    runs on the mesh's first device, which ``device``, if given, must
+    name."""
 
     def __init__(
         self,
@@ -471,7 +518,7 @@ class Collection:
         score="raw",
         compressed=False,
         mesh=None,
-        device="cuda",
+        device=None,
         **extra,
     ):
         _reject_extra(extra)
@@ -490,7 +537,6 @@ class Collection:
             raise E.VettoreError("compressed must be a boolean", reason="invalid_compressed")
         if index_options is not None and not isinstance(index_options, dict):
             raise E.InvalidIndexOptions("index_options must be a dict")
-        _reject_mesh(mesh)
 
         self.name = name
         self.dimensions = dimensions
@@ -500,11 +546,12 @@ class Collection:
         self.index_kind = index if isinstance(index, str) else "custom"
         self.index_options = dict(index_options or {})
         self.compressed = compressed
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _collection_device(device, mesh)
 
         self._stats = StatsRegistry()
         self._index = self._make_index(index, metric, self.index_options, compressed,
-                                       device=self.device)
+                                       device=self.device, mesh=mesh)
         self._store = self._make_store(store, self._config())
         self._write_lock = threading.RLock()
         self._version = 0
@@ -518,7 +565,16 @@ class Collection:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _make_index(index, metric, index_options, compressed=False, *, device):
+    def _make_index(index, metric, index_options, compressed=False, *, device, mesh=None):
+        if mesh is not None and index in ("flat", "hnsw", "ivf"):
+            # a collection larger than one card shards across the mesh
+            # (SURVEY §5.8): the same Index behaviour, row-sharded device state
+            if index == "flat":
+                return MeshFlatIndex(metric, index_options or None, mesh=mesh,
+                                     storage="bf16" if compressed else "f32")
+            if index == "hnsw":
+                return MeshHnswIndex(metric, index_options, mesh=mesh)
+            return MeshIvfIndex(metric, index_options, mesh=mesh)
         if index == "flat":
             # the reference's `compressed` trades CPU for ETS memory; here
             # the device block is stored in bf16 (half the card's memory,
@@ -596,9 +652,11 @@ class Collection:
 
     @observed("sync")
     def sync(self) -> None:
-        """Returns only after every queued device operation has finished."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Returns only after every queued device operation has finished (on
+        every device of the mesh)."""
+        for dev in self.mesh.distinct() if self.mesh is not None else [self.device]:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     @property
     def store(self) -> Store:
@@ -1064,9 +1122,14 @@ class Collection:
     def _query_tensor(self, prepared: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(prepared, dtype=np.float32)).to(self.device)
 
+    def _mesh_pad(self, rows):
+        """A sync path's batch padded to whole data rows on a mesh
+        (``parallel.mesh.pad_batch``); as it is without one."""
+        return rows if self.mesh is None else pad_batch(self.mesh, rows)
+
     def _scan_cache(self) -> _VectorCache:
         if self._cache is None or self._cache_version != self._version:
-            cache = _VectorCache(self._store.all(), self.dimensions, self.device)
+            cache = _VectorCache(self._store.all(), self.dimensions, self.device, self.mesh)
             self._try_share_block(cache)
             self._cache = cache
             self._cache_version = self._version
@@ -1098,12 +1161,13 @@ class Collection:
         return [self._to_result(cache.records[int(slot)], float(raw))
                 for slot, raw, rank in zip(slots, raws, ranks) if np.isfinite(rank)]
 
-    def _batch_results(self, cache, out, host_route) -> list:
+    def _batch_results(self, cache, out, host_route, b=None) -> list:
         """Per-query Results from a batched pipeline's ``(slots, raws,
-        ranks, ok)``; a query whose ``ok`` is False takes ``host_route(b)``."""
+        ranks, ok)`` (its first ``b`` rows: the rest pad a mesh batch); a
+        query whose ``ok`` is False takes ``host_route(b)``."""
         top, raws, ranks, finite = (t.cpu().numpy() for t in out)
-        return [self._slots_to_results(cache, top[b], raws[b], ranks[b]) if finite[b]
-                else host_route(b) for b in range(top.shape[0])]
+        return [self._slots_to_results(cache, top[i], raws[i], ranks[i]) if finite[i]
+                else host_route(i) for i in range(top.shape[0] if b is None else b)]
 
     def _funnel_stages(self, stages, dimensions):
         if stages is None:
@@ -1118,30 +1182,41 @@ class Collection:
     def _funnel_stage_xsq(self, cache, stages, count):
         """Prefix squared norms for the fused K5 stage 1, or None when the
         config takes the plain stage 1 (small corpora, unsupported metric,
-        stage width or count)."""
-        cap = cache.cap
+        stage width or count). On a mesh the thresholds apply to a shard's
+        rows, and the norms are sharded too."""
+        rows = cache.n_loc
         if (
-            cap >= pipe._FUSED_STAGE_MIN
+            rows >= pipe._FUSED_STAGE_MIN
             and flat_scan.supports_candidates(
-                self.metric, cap, stages[0], min(count, max(cache.n, 1)))
+                self.metric, rows, stages[0], min(count, max(cache.n, 1), rows))
         ):
             return cache.stage_xsq(stages[0])
         return None
 
     def _funnel_device(self, cache, queries, limit, candidates, stages):
-        """The batched funnel pipeline over the cache: device
-        ``(slots, raws, ranks, ok)``."""
+        """The batched funnel pipeline over the cache (sharded on a mesh,
+        whose batches must be a multiple of ``data``): device ``(slots,
+        raws, ranks, ok)``."""
         x, valid = cache.vectors()
         count = min(candidates, max(cache.n, 1))
+        stage_xsq = self._funnel_stage_xsq(cache, stages, count)
+        if cache.mesh is not None:
+            return amesh.sharded_funnel_topk(
+                cache.mesh, x, valid, stage_xsq, queries, n=cache.n, metric=self.metric,
+                stages=tuple(stages), count=count, limit=min(limit, count))
         return pipe.funnel_pipeline_batch(
-            x, valid, queries, self._funnel_stage_xsq(cache, stages, count),
+            x, valid, queries, stage_xsq,
             metric=self.metric, stages=tuple(stages), count=count, limit=min(limit, count))
 
     def _quantized_device(self, cache, queries, limit, candidates):
-        """The batched quantized pipeline over the cache: device
-        ``(slots, raws, ranks, ok)``."""
+        """The batched quantized pipeline over the cache (sharded on a
+        mesh): device ``(slots, raws, ranks, ok)``."""
         x, valid = cache.vectors()
         count = min(candidates, max(cache.n, 1))
+        if cache.mesh is not None:
+            return amesh.sharded_quantized_topk(
+                cache.mesh, x, cache.signs(), valid, queries, n=cache.n, metric=self.metric,
+                count=count, limit=min(limit, count), d=self.dimensions)
         return pipe.quantized_pipeline_batch(
             x, cache.signs(), valid, queries, metric=self.metric, count=count,
             limit=min(limit, count), d=self.dimensions)
@@ -1159,9 +1234,10 @@ class Collection:
         cache = self._scan_cache()
         if cache.n == 0:
             return []
-        out = self._funnel_device(cache, self._query_tensor(q[None, :]), limit, candidates, stages)
+        out = self._funnel_device(cache, self._query_tensor(self._mesh_pad(q[None, :])), limit,
+                                  candidates, stages)
         return self._batch_results(
-            cache, out, lambda b: self._funnel_host(cache, q, stages, candidates, limit))[0]
+            cache, out, lambda b: self._funnel_host(cache, q, stages, candidates, limit), 1)[0]
 
     @observed("funnel_search_batch")
     def funnel_search_batch(self, queries, *, limit=10, candidates=None, stages=None,
@@ -1177,10 +1253,12 @@ class Collection:
             return [[] for _ in range(prepared.shape[0])]
         if prepared.shape[0] == 0:
             return []
-        out = self._funnel_device(cache, self._query_tensor(prepared), limit, candidates, stages)
+        out = self._funnel_device(cache, self._query_tensor(self._mesh_pad(prepared)), limit,
+                                  candidates, stages)
         return self._batch_results(
             cache, out,
-            lambda b: self._funnel_host(cache, prepared[b], stages, candidates, limit))
+            lambda b: self._funnel_host(cache, prepared[b], stages, candidates, limit),
+            prepared.shape[0])
 
     def funnel_search_batch_device(self, queries_device, *, limit=10, candidates=None,
                                    stages=None, dimensions=None):
@@ -1189,7 +1267,9 @@ class Collection:
         ``prepare_query``), returns ``(slots, raws, ranks, ok)`` device
         tensors with no host transfer. The serving/pipelining path, like
         ``FlatIndex.search_batch_device``; hydrate with
-        ``results_from_device``."""
+        ``results_from_device``. On a mesh the batch must be a multiple of
+        the ``data`` axis, and the results land on the mesh's first
+        device."""
         _validate_limit(limit)
         candidates = _default_candidates(candidates, limit)
         stages = self._funnel_stages(stages, dimensions)
@@ -1206,9 +1286,10 @@ class Collection:
         cache = self._scan_cache()
         if cache.n == 0:
             return []
-        out = self._quantized_device(cache, self._query_tensor(q[None, :]), limit, candidates)
+        out = self._quantized_device(cache, self._query_tensor(self._mesh_pad(q[None, :])), limit,
+                                     candidates)
         return self._batch_results(
-            cache, out, lambda b: self._quantized_host(cache, q, candidates, limit))[0]
+            cache, out, lambda b: self._quantized_host(cache, q, candidates, limit), 1)[0]
 
     @observed("quantized_search_batch")
     def quantized_search_batch(self, queries, *, limit=10, candidates=None, **extra) -> list:
@@ -1222,9 +1303,11 @@ class Collection:
             return [[] for _ in range(prepared.shape[0])]
         if prepared.shape[0] == 0:
             return []
-        out = self._quantized_device(cache, self._query_tensor(prepared), limit, candidates)
+        out = self._quantized_device(cache, self._query_tensor(self._mesh_pad(prepared)), limit,
+                                     candidates)
         return self._batch_results(
-            cache, out, lambda b: self._quantized_host(cache, prepared[b], candidates, limit))
+            cache, out, lambda b: self._quantized_host(cache, prepared[b], candidates, limit),
+            prepared.shape[0])
 
     def quantized_search_batch_device(self, queries_device, *, limit=10, candidates=None):
         """Device-to-device quantized search; same contract as
@@ -1325,11 +1408,12 @@ class Collection:
         return self._multi_vector_sets([query_vectors], limit=limit, metric=metric,
                                        candidates=candidates, fde_cfg=fde_cfg)[0]
 
-    def _multi_vector_host(self, cache, queries, metric, limit, ids=None):
+    def _multi_vector_host(self, cache, queries, metric, limit, ids=None, count=True):
         """The float64 host MaxSim (multi_vector.rs) over every record, or
         over the records ``ids``, for queries whose device scores overflowed
-        f32."""
-        self.host_routes += 1
+        f32 (counted in ``host_routes`` unless ``count`` is False: a caller
+        that counted the route itself)."""
+        self.host_routes += count
         documents = []
         for r in cache.records if ids is None else (cache.by_id[id] for id in ids):
             vs = r.vectors if _has_tokens(r.vectors) else [r.vector]
@@ -1391,13 +1475,14 @@ class Collection:
     def _multi_vector_sets(self, query_sets, *, limit, metric, candidates, fde_cfg) -> list:
         """MaxSim search of a non-empty batch of query token sets: over MUVERA
         candidates when ``fde_cfg`` is set and ``candidates`` is below the
-        record count, else the full scan."""
+        record count, else the full scan (always on a mesh, as in the JAX
+        package)."""
         qtok, qmask = self._pad_query_sets(query_sets)
         cache = self._scan_cache()
         if cache.n == 0:
             return [[] for _ in query_sets]
         k = min(limit, cache.n)
-        if fde_cfg is not None and candidates < cache.n:
+        if fde_cfg is not None and candidates < cache.n and self.mesh is None:
             out = self._mv_fde_pipeline(cache, qtok, qmask, metric=metric,
                                         candidates=candidates, cfg=fde_cfg, k=k)
         else:
@@ -1456,6 +1541,14 @@ class Collection:
         whose ``ok`` is False (f32 overflow) takes the float64 host path."""
         tokens, counts = cache.multi_vectors()
         valid = cache.valid_mask()
+        if cache.mesh is not None:
+            fused = maxsim_ops.supports_fused(metric, cache.n_loc, qtok.shape[1])
+            return amesh.sharded_maxsim_topk(
+                cache.mesh, tokens, counts, valid, cache.token_norms() if fused else None,
+                self._query_tensor(self._mesh_pad(qtok)),
+                torch.from_numpy(self._mesh_pad(qmask)).to(self.device), n=cache.n,
+                metric=metric, limit=k, chunk=_mv_chunk(cache.n_loc, qtok.shape[0], qtok.shape[1],
+                                         tokens.shard(0).shape[1]))
         qtok_t = self._query_tensor(qtok)
         qmask_t = torch.from_numpy(qmask).to(self.device)
         if maxsim_ops.supports_fused(metric, cache.cap, qtok.shape[1]):
@@ -1497,7 +1590,15 @@ class Collection:
             generators = self._default_generators()
         if not isinstance(generators, (list, tuple)) or not generators:
             raise E.InvalidGenerator(generators)
-        return self._hybrid_single(self.prepare_query(query), limit, generators, rerank)
+        q = self.prepare_query(query)
+        if self.mesh is not None:
+            # one query rides the sharded batch pipeline; the raw query, so
+            # normalization applies once
+            if isinstance(rerank, tuple) and len(rerank) in (2, 3) and rerank[0] == "multi_vector":
+                rerank = ("multi_vector", [rerank[1]]) + tuple(rerank[2:])
+            return self.hybrid_search_batch(np.asarray(query, np.float64)[None, :], limit=limit,
+                                            generators=generators, rerank=rerank)[0]
+        return self._hybrid_single(q, limit, generators, rerank)
 
     def _default_generators(self) -> list:
         """collection.ex:513-514: hnsw collections default to
@@ -1608,20 +1709,34 @@ class Collection:
             return []
         if cache.n == 0:
             return [[] for _ in range(b)]
+        mesh = cache.mesh
+        # a mesh batch pads to a multiple of data (the pad rows' results are
+        # dropped)
+        prepared = self._mesh_pad(prepared)
         qdev = self._query_tensor(prepared)
         blocks = []
-        gen_ok = torch.ones(b, dtype=torch.bool, device=self.device)
+        gen_ok = torch.ones(prepared.shape[0], dtype=torch.bool, device=self.device)
         for name, candidates, stages in parsed:
             count = min(candidates, cache.n)
             if name == "funnel":
                 x, valid = cache.vectors()
-                slots, slot_ok, g_ok = pipe.funnel_candidates_batch(
-                    x, valid, qdev, self._funnel_stage_xsq(cache, stages, count),
-                    metric=self.metric, stages=tuple(stages), count=count)
+                stage_xsq = self._funnel_stage_xsq(cache, stages, count)
+                if mesh is not None:
+                    slots, slot_ok, g_ok = amesh.sharded_funnel_candidates(
+                        mesh, x, valid, stage_xsq, qdev, n=cache.n, metric=self.metric,
+                        stages=tuple(stages), count=count)
+                else:
+                    slots, slot_ok, g_ok = pipe.funnel_candidates_batch(
+                        x, valid, qdev, stage_xsq,
+                        metric=self.metric, stages=tuple(stages), count=count)
             elif name == "quantized":
-                slots, slot_ok, g_ok = pipe.quantized_candidates_batch(
-                    cache.signs(), cache.valid_mask(), qdev, count=count, d=self.dimensions)
+                fn = (pipe.quantized_candidates_batch if mesh is None else
+                      lambda *a, **kw: amesh.sharded_quantized_candidates(mesh, *a, n=cache.n,
+                                                                          **kw))
+                slots, slot_ok, g_ok = fn(cache.signs(), cache.valid_mask(), qdev,
+                                          count=count, d=self.dimensions)
             else:
+                # a mesh index has no device candidates: the host path
                 blocks.append(self._index_candidates(cache, name, prepared, qdev, count))
                 continue
             blocks.append(torch.where(slot_ok, slots, _BIG32))
@@ -1632,7 +1747,9 @@ class Collection:
 
         if mv is None:
             x, _valid = cache.vectors()
-            top, raws, ranks, fin = (t.cpu().numpy() for t in pipe.rerank_batch(
+            rerank_fn = (pipe.rerank_batch if mesh is None else
+                         lambda *a, **kw: amesh.sharded_subset_rerank(mesh, *a, n=cache.n, **kw))
+            top, raws, ranks, fin = (t.cpu().numpy() for t in rerank_fn(
                 x, u_slots, u_ok, qdev, metric=self.metric, limit=k))
             ok = fin & gen_ok.cpu().numpy()
             return [self._slots_to_results(cache, top[i], raws[i], ranks[i]) if ok[i]
@@ -1640,17 +1757,25 @@ class Collection:
                     for i in range(b)]
 
         qsets = mv[1]
-        qtok, qmask = self._pad_query_sets(qsets)
+        qtok, qmask = (self._mesh_pad(a) for a in self._pad_query_sets(qsets))
         tokens, counts = cache.multi_vectors()
+        t_max = (tokens if mesh is None else tokens.shard(0)).shape[1]
         # chunk the query batch so the [B, C, T, d] candidate gather stays
-        # bounded (~512 MB of f32)
-        per_q = max(1, u_slots.shape[1] * tokens.shape[1] * self.dimensions)
+        # bounded (~512 MB of f32); on a mesh by whole data rows
+        per_q = max(1, u_slots.shape[1] * t_max * self.dimensions)
         bs = max(1, (512 * 1024 * 1024 // 4) // per_q)
+        subset = maxsim_ops.maxsim_subset_topk_batch
+        if mesh is not None:
+            data = mesh.shape["data"]
+            bs = max(data, bs - bs % data)
+            subset = lambda *a, **kw: amesh.sharded_subset_maxsim(  # noqa: E731
+                mesh, *a, n=cache.n, **kw)
         qtok_t = self._query_tensor(qtok)
         qmask_t = torch.from_numpy(qmask).to(self.device)
-        parts = [maxsim_ops.maxsim_subset_topk_batch(
+        parts = [subset(
             tokens, counts, u_slots[s:s + bs], u_ok[s:s + bs], qtok_t[s:s + bs],
-            qmask_t[s:s + bs], metric=mv_metric, limit=k) for s in range(0, b, bs)]
+            qmask_t[s:s + bs], metric=mv_metric, limit=k)
+            for s in range(0, qtok.shape[0], bs)]
         top, scores, mv_ok = (torch.cat([p[j] for p in parts]).cpu().numpy() for j in range(3))
         ok = mv_ok & gen_ok.cpu().numpy()
         return [self._mv_slots_to_results(cache, top[i], scores[i], mv_metric) if ok[i]
@@ -1691,10 +1816,15 @@ class Collection:
     def _run_generator(self, cache, q, gen, limit) -> list:
         """One generator's candidate ids for one prepared query ``q``. A
         funnel that overflows f32 or a quantized selection that spills its
-        tie slack scans on the host (counted in ``host_routes``)."""
+        tie slack scans on the host (counted in ``host_routes``). On a mesh
+        this is the re-run of a flagged batch query, on the host oracles."""
         name, candidates, stages = self._parse_generator(gen, limit)
         if name in ("funnel", "quantized") and cache.n == 0:
             return []
+        if cache.mesh is not None and name == "funnel":
+            return self._funnel_host_ids(cache, q, stages, candidates)
+        if cache.mesh is not None and name == "quantized":
+            return self._quantized_host_ids(cache, q, candidates)
         count = min(candidates, cache.n)
         qt = self._query_tensor(q)
         if name == "funnel":
@@ -1729,6 +1859,11 @@ class Collection:
             queries = self._prepare_query_vectors(mv[1])
         if not candidate_ids:
             return []
+        if cache.mesh is not None:  # a flagged batch query's host re-run
+            if mv is None:
+                return self._rank_host(cache, q, candidate_ids, limit)
+            return self._multi_vector_host(cache, queries, metric, limit, ids=candidate_ids,
+                                           count=False)
         # ascending slots ARE lex order (the cache is id-sorted), which the
         # stable (rank, id) tie-break requires
         slots = np.array(sorted(cache.slot_of[id] for id in candidate_ids), dtype=np.int64)
@@ -1774,16 +1909,17 @@ class Collection:
 
 
 def load_snapshot(path: str, *, name=None, index=None, index_options=None, score=None,
-                  store=None, mesh=None, device="cuda", **extra):
+                  store=None, mesh=None, device=None, **extra):
     """Loads a collection from a snapshot; the index is rebuilt from canonical
     records, never deserialized. Overrides are restricted to non-structural
     fields (collection.ex:54,1159-1174) and persist through later snapshots.
-    ``device`` is where the rebuilt index lives, as for :class:`Collection`."""
+    ``device`` is where the rebuilt index lives, as for :class:`Collection`;
+    ``mesh`` rebuilds it sharded across the mesh (the snapshot format is
+    the same either way: the host records are canonical)."""
     for key in extra:
         raise E.UnsupportedSnapshotOverride(key)
     if not isinstance(path, str):
         raise E.InvalidSnapshot("invalid snapshot path")
-    _reject_mesh(mesh)
     if store == "columnar":
         # ColumnarStore.load_snapshot picks bf16 itself for compressed configs
         store = ColumnarStore
@@ -1793,7 +1929,7 @@ def load_snapshot(path: str, *, name=None, index=None, index_options=None, score
     loaded_store, config = store_cls.load_snapshot(path)
     try:
         return _restore(loaded_store, config, name=name, index=index,
-                        index_options=index_options, score=score, device=device)
+                        index_options=index_options, score=score, device=device, mesh=mesh)
     except Exception:
         close = getattr(loaded_store, "close", None)
         if callable(close):
@@ -1801,7 +1937,7 @@ def load_snapshot(path: str, *, name=None, index=None, index_options=None, score
         raise
 
 
-def _restore(loaded_store, config, *, name, index, index_options, score, device):
+def _restore(loaded_store, config, *, name, index, index_options, score, device, mesh=None):
     if not isinstance(config, dict):
         raise E.InvalidSnapshot("snapshot config must be a map")
     if config.get("snapshot_version", 0) not in (0, SNAPSHOT_VERSION):
@@ -1837,10 +1973,11 @@ def _restore(loaded_store, config, *, name, index, index_options, score, device)
     collection.index_kind = index_kind if isinstance(index_kind, str) else "custom"
     collection.index_options = dict(opts)
     collection.compressed = compressed
-    collection.device = resolve_device(device)
+    collection.mesh = mesh
+    collection.device = _collection_device(device, mesh)
     collection._stats = StatsRegistry()
     collection._index = Collection._make_index(index_kind, metric, dict(opts), compressed,
-                                               device=collection.device)
+                                               device=collection.device, mesh=mesh)
     collection._store = loaded_store
     collection._write_lock = threading.RLock()
     collection._version = 0

@@ -20,7 +20,11 @@ array is recognised by its dtype's name and widened bit for bit.
   package's, so both packages' beam searches run on one graph;
 * :func:`ivf_state` — a built JAX ``IvfIndex``'s routing structure and
   pending tail installed in this package's ``IvfIndex``, so both packages
-  probe the same blocks.
+  probe the same blocks;
+* :func:`sharded_hnsw_state` / :func:`sharded_ivf_state` — a JAX
+  ``ShardedHnsw`` / ``ShardedIvf``'s stacked shard arrays as this
+  package's per-shard state on a mesh, so both packages search the same
+  shard graphs and blocks.
 
 Snapshots need no conversion: both packages write and read the same file
 format (``store/snapshot.py``).
@@ -255,3 +259,68 @@ def ivf_state(index, *, xb, xsq, bias, lex, bcb, csq, bbias, block_ids, tuned=No
     index._built_version = index._version
     index._builds += 1
     return index
+
+
+def sharded_hnsw_state(mesh, metric, params, ids, *, x, a0, upi, upa, lex, rows, entries,
+                       row_of):
+    """This package's ``ShardedHnsw`` over a JAX ``ShardedHnsw``'s stacked
+    arrays (``_x`` ``[S, cap, d]`` f32, ``_a0`` ``[S, cap, m0]``, ``_upi``
+    ``[S, cap]``, ``_upa`` ``[S, U, L, m]``, ``_lex`` and ``_rows``
+    ``[S, cap]`` int32, ``_entries`` ``[S, 2]``), its ``ids`` and
+    ``_row_of`` (per shard, local slot → global row). Shard ``s`` goes to
+    ``mesh.devices[0][s]`` at JAX's stacked shape, so both packages search
+    the same graphs; the result only searches (its writes need the shard
+    graphs, which the stacked arrays are not)."""
+    from .parallel.hnsw_mesh import ShardedHnsw
+
+    arrays = [np.asarray(a) for a in (x, a0, upi, upa, lex, rows, entries)]
+    if any(a.shape[0] != mesh.shape["shard"] for a in arrays):
+        raise DimensionMismatch(f"the arrays hold other than {mesh.shape['shard']} shards")
+    x_np, a0_np, upi_np, upa_np, lex_np, rows_np, entries_np = arrays
+    shards = []
+    for s in range(mesh.shape["shard"]):
+        dev = mesh.devices[0][s]
+
+        def put(a, dtype):
+            return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+        shards.append((put(_as_f32(x_np[s]), np.float32), put(a0_np[s], np.int32),
+                       put(upi_np[s], np.int32), put(upa_np[s], np.int32),
+                       put(lex_np[s], np.int32), put(rows_np[s], np.int32),
+                       int(entries_np[s, 0]), int(entries_np[s, 1]), int(upa_np.shape[2])))
+    index = ShardedHnsw.from_state(metric, mesh, params, ids, shards)
+    index._row_of = [np.array(r, dtype=np.int32) for r in row_of]
+    return index
+
+
+def sharded_ivf_state(mesh, metric, ids, *, x, xsq, bias, lex, rows, bcb, csq, bbias,
+                      options=None, tuned=None):
+    """This package's ``ShardedIvf`` over a JAX ``ShardedIvf``'s stacked
+    arrays: ``_x`` ``[S, capb, d]`` f32 or bf16 (kept in its dtype),
+    ``_xsq``, ``_bias``, ``_lex`` and ``_rows`` ``[S, capb]``, ``_bcb``
+    ``[S, capb/64, d]`` bf16, ``_csq`` and ``_bbias`` ``[S, capb/64]``, with
+    its ``ids``, ``params`` (``options``) and ``tuned``. Shard ``s`` goes to
+    ``mesh.devices[0][s]``, so both packages probe the same blocks."""
+    from .parallel.ivf_mesh import ShardedIvf
+
+    arrays = {"x": x, "xsq": xsq, "bias": bias, "lex": lex, "rows": rows, "bcb": bcb,
+              "csq": csq, "bbias": bbias}
+    shards = []
+    for s in range(mesh.shape["shard"]):
+        dev = mesh.devices[0][s]
+        st = {}
+        for name, a in arrays.items():
+            a = np.asarray(a)
+            if a.shape[0] != mesh.shape["shard"]:
+                raise DimensionMismatch(f"{name} holds other than {mesh.shape['shard']} shards")
+            if name in ("x", "bcb"):
+                st[name] = _block(a[s])
+            elif name in ("lex", "rows"):
+                st[name] = torch.from_numpy(np.array(a[s], dtype=np.int32))
+            else:
+                st[name] = torch.from_numpy(_as_f32(a[s]))
+            st[name] = st[name].to(dev)
+        if st["bcb"].dtype != torch.bfloat16 or st["x"].shape[0] != 64 * st["bcb"].shape[0]:
+            raise DimensionMismatch("x and the bf16 routing centroids disagree on the blocks")
+        shards.append(st)
+    return ShardedIvf.from_state(metric, mesh, ids, shards, options=options, tuned=tuned)

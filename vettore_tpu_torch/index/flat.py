@@ -37,6 +37,9 @@ from .base import Index
 _MIN_CAP = 8
 _ROW_TILE = 1024
 _STORAGES = ("f32", "bf16", "int8")
+#: rows (capacity; a mesh shard's rows) from which a block searches on the
+#: fused kernels; smaller blocks take the plain scan
+FUSED_ROWS_MIN = 1024
 
 
 def _cap_for(needed: int) -> int:
@@ -379,7 +382,7 @@ class FlatIndex(Index):
         """Whether the fused group-min scan (ops/flat_scan.py) handles this
         search; small blocks and other metrics take the plain scan (group
         selection only pays off past a few row tiles)."""
-        return self._cap >= 1024 and flat_scan.supports(self.metric, self._cap, k)
+        return self._cap >= FUSED_ROWS_MIN and flat_scan.supports(self.metric, self._cap, k)
 
     def _dispatch(self, queries_device, k: int):
         """(slots [B, k], raws [B, k], ranks [B, k], ok [B]) device tensors:

@@ -261,7 +261,8 @@ def _stage1_candidates(x, valid, queries, stage_xsq, *, metric, dims, count):
     """Stage-1 candidate selection: the fused K5 prefix scan + K7 group
     cover when the caller supplied prefix norms and the config qualifies;
     the plain formulation (materialized [B, N] rank matrix) otherwise.
-    Returns (slots [B, count] best-first, ok [B])."""
+    Returns (slots [B, count] best-first, ranks [B, count] (+inf pads),
+    ok [B])."""
     n = x.shape[0]
     if (
         stage_xsq is not None
@@ -269,18 +270,17 @@ def _stage1_candidates(x, valid, queries, stage_xsq, *, metric, dims, count):
         and flat_scan.supports_candidates(metric, n, dims, count)
     ):
         bias = torch.where(valid, 0.0, float("inf")).float()
-        slots, _ranks, ok = flat_scan.fused_stage_candidates(
+        return flat_scan.fused_stage_candidates(
             x, stage_xsq, bias, queries, metric=metric, count=count, dims=dims)
-        return slots, ok
     rank, finite = _rank_full(x, valid, queries, metric=metric, dims=dims)
-    slots, _, sel_ok = exact_top_c(rank, None, c=count)
-    return slots, finite & sel_ok
+    slots, ranks, sel_ok = exact_top_c(rank, None, c=count)
+    return slots, ranks, finite & sel_ok
 
 
 def _funnel_stages(x, valid, queries, stage_xsq, *, metric, stages, count):
     """Stage 1 and the narrowing stages: (slots, slot_ok, ok)."""
-    slots, ok = _stage1_candidates(x, valid, queries, stage_xsq,
-                                   metric=metric, dims=stages[0], count=count)
+    slots, _ranks, ok = _stage1_candidates(x, valid, queries, stage_xsq,
+                                           metric=metric, dims=stages[0], count=count)
     slots, slot_ok = _sort_candidates(slots)
     for dims in stages[1:]:
         raw, rank_c, f = _subset_raw_rank(x, slots, slot_ok, queries, metric=metric, dims=dims)
