@@ -6,8 +6,9 @@ builds, batched beam search, writes to a bulk graph, compaction and graph
 files), the IVF index (its k-means build, probed search, writes and
 rebuilds), ``compressed=True``, the multi-vector MaxSim search (exact
 and over MUVERA candidates), the hybrid pipelines and MMR, through
-``Collection``, and the mesh (4 virtual shards) — on one CUDA card,
-builds the hand-written CUDA kernels from this checkout, holds every
+``Collection``, and the mesh (4 virtual shards; on a machine with four
+cards, also the mesh over the four) — on one CUDA card, builds the
+hand-written CUDA kernels from this checkout, holds every
 kernel against its plain PyTorch version at the main path's shapes, and
 checks search results against float64 numpy oracles. Imports nothing of
 JAX.
@@ -168,22 +169,41 @@ Phases (each prints one line; any failure exits non-zero):
    data 2 x shard 2 at config 1's size: flat, funnel and quantized equal
    to one device's, their launches counted (K1, K2, K5 and K7 each at
    least once) and every call held against its plain version at the
-   shapes of those shards.
+   shapes of those shards;
+8. the mesh over four real cards, run only when the machine has four
+   (with fewer it logs ``[phase 8] N card(s): not run``): each card's
+   ``nvidia-smi`` line and the cards' peer access, then 8a, phase 7's runs
+   over ``make_mesh()`` (every card, shard 4, data 1; data 2 x shard 2 at
+   config 1 over the same four), with phase 7's checks and every card
+   launching each kernel its shards run (``_build.CARD_LAUNCHES``), each
+   mode's ms per batch and each card's busy ms beside phase 7's and one
+   device's; and 8b, a flat block larger than one card: 4 x 7,000,000 x
+   768 f32 (86.0 GB), each shard generated on its card by
+   ``synth.clustered`` in chunks of 1,000,000 rows, searched by
+   ``parallel.sharded_search`` in batches of 512 near-queries (cosine,
+   k = 10): 16 queries' ids equal a float64 oracle computed card by card,
+   every K1 / K2 launch held against its plain version (K1 on the first
+   2,097,152 rows of its shard), ms per batch, each card's busy ms, the
+   gathered bytes, memory per card and the reruns.
 
 The last two lines of standard output are a JSON summary of the kernels
-(each with its launches on its path and on phases 4e, 4f, 4g, 6b, 7 ("mesh")
-and 7f ("mesh data 2"), max abs error against its plain version over every
-check, that error on each of phases 4e, 6b, 7 and 7f (null where the mesh
-launched none), and max relative error where the tolerance is relative,
-kernel / plain / library ms and its bound, and its ms at the mesh's shard
-shapes) and ``{"ok": true, "device": {...}}``.
+(each with its launches on its path and on phases 4e, 4f, 4g, 6b, 7 ("mesh"),
+7f ("mesh data 2") and 8 ("mesh cards", null where phase 8 did not run),
+max abs error against its plain version over every check, that error on
+each of phases 4e, 6b, 7, 7f and 8 (null where the mesh launched none),
+and max relative error where the tolerance is relative, kernel / plain /
+library ms and its bound, its ms at the mesh's shard shapes, and
+``mesh_cards_ms`` at the shard shapes on the four cards) and ``{"ok":
+true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (needs one CUDA card
-and ``nvcc``; the kernels build at first use, in seconds).
+and ``nvcc``; the kernels build at first use, in seconds; phase 8 runs on a
+machine with four cards).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -267,6 +287,14 @@ IVF_FULL_B = 16
 MESH_SHARDS = 4
 MESH_PUT_MANY, MESH_DELETES = 8192, 10_000
 MESH_HNSW_OPTS = dict(HNSW_OPTS, build="wave")
+#: phase 8: the mesh over four real cards, run when the machine has them.
+#: 8b's block: BIG_SHARD rows x D_MAIN f32 on each card (4 x 7,000,000 x 768
+#: x 4 B = 86.0 GB, more than one card's 80 GB; 7,000,000 = 64 x 109,375),
+#: generated on its card in chunks of BIG_CHUNK rows (one synth call and
+#: seed each); K1 held against its plain version on the first BIG_CHECK
+#: rows of a shard; BIG_ORACLE queries against the float64 oracle
+CARDS = 4
+BIG_SHARD, BIG_CHUNK, BIG_CHECK, BIG_ORACLE = 7_000_000, 1_000_000, 1 << 21, 16
 
 
 def log(msg: str) -> None:
@@ -385,14 +413,15 @@ def kernel_ms(torch, fn, key, reps=10):
 
 
 def host_ms(torch, fn, reps=7):
-    """Median wall milliseconds of ``fn`` including a device synchronise."""
+    """Median wall milliseconds of ``fn`` including a synchronise of every
+    card."""
     fn()
-    torch.cuda.synchronize()
+    sync_all(torch)
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync_all(torch)
         times.append(1e3 * (time.perf_counter() - t0))
     return float(np.median(times))
 
@@ -490,7 +519,11 @@ def adaptive_kernels(torch, fs, select, x32, bias, q, card):
 
 def reset_counts(*modules):
     """Zeroes the launch and operand-route counts of the kernel wrappers of
-    ``modules`` (``ops.flat_scan``, ``ops.maxsim``)."""
+    ``modules`` (``ops.flat_scan``, ``ops.maxsim``) and the launches per
+    card (``_build.CARD_LAUNCHES``)."""
+    from vettore_tpu_torch import _build
+
+    _build.CARD_LAUNCHES.clear()
     for module in modules:
         for name in module.LAUNCHES:
             module.LAUNCHES[name] = 0
@@ -513,14 +546,14 @@ PATH_KERNELS = {
 
 
 def _signature(args, kwargs):
-    return tuple((tuple(a.shape), a.dtype) if hasattr(a, "shape") else a
+    return tuple((tuple(a.shape), a.dtype, str(a.device)) if hasattr(a, "shape") else a
                  for a in args) + tuple(sorted(kwargs.items()))
 
 
 class PathCalls:
     """Within ``with PathCalls(fs, ms) as calls:``, records the operands of
-    the first call of each ``PATH_KERNELS`` wrapper per operand shape, type
-    and option (``ops.maxsim`` binds ``extract_group_rows`` by name, so it
+    the first call of each ``PATH_KERNELS`` wrapper per operand shape, type,
+    device and option (``ops.maxsim`` binds ``extract_group_rows`` by name, so it
     is patched there too). ``check`` then calls each wrapper again on those
     operands and holds it against its plain version."""
 
@@ -2105,16 +2138,20 @@ def same_rows(got, want, label):
     return swaps
 
 
-def mesh_phase(torch, vt, rng, inp, one, card):
-    """Phase 7: the mesh, ``make_mesh([cuda:0] * 4)`` (4 virtual shards,
-    data 1), over the host copies of phase 4's corpus, queries and exact
-    results, phase 4b's and 4e's results and phase 6's token corpus and
-    exact MaxSim results (``inp``); ``one`` holds the one-device ms per
-    batch and profiler splits of those phases. Then data 2 x shard 2 at
-    config 1's size. Every kernel the mesh launched is held against its
-    plain version at the shard's own shapes and timed there. Returns the
-    launch counts, the kernels' errors and ms at shard shapes, and the
-    numbers the summary prints."""
+def mesh_phase(torch, vt, rng, inp, one, card, *, devices=None, tag="7", seven=None):
+    """Phase 7: the mesh over ``devices`` (``[cuda:0] * 4``: 4 virtual
+    shards, data 1; None: ``make_mesh()``, every card, for phase 8a), over
+    the host copies of phase 4's corpus, queries and exact results, phase
+    4b's and 4e's results and phase 6's token corpus and exact MaxSim
+    results (``inp``); ``one`` holds the one-device ms per batch and
+    profiler splits of those phases, ``seven`` phase 7's (beside phase
+    8a's). Then data 2 x shard 2 at config 1's size over the same devices.
+    Every kernel the mesh launched is held against its plain version at the
+    shard's own shapes and timed there, and every card of the mesh must
+    have launched each kernel its shards run. ``tag`` begins every line
+    logged. Returns the launch counts (in all and per card), the kernels'
+    errors and ms at shard shapes, and the numbers the summary prints."""
+    from vettore_tpu_torch import _build
     from vettore_tpu_torch.ops import flat_scan as fs
     from vettore_tpu_torch.ops import maxsim as ms
     from vettore_tpu_torch.ops.distance import normalize_rows
@@ -2122,7 +2159,8 @@ def mesh_phase(torch, vt, rng, inp, one, card):
     from vettore_tpu_torch.parallel.ivf_mesh import ShardedIvf
 
     dev = torch.device(DEVICE)
-    mesh = make_mesh([dev] * MESH_SHARDS)
+    mesh = make_mesh() if devices is None else make_mesh(devices)
+    shards = mesh.shape["shard"]
     corpus, ids, queries = inp["corpus"], inp["ids"], inp["queries"]
     prepared = normalize_rows(queries, "l2")
     qdev = torch.from_numpy(prepared).to(dev)
@@ -2133,6 +2171,7 @@ def mesh_phase(torch, vt, rng, inp, one, card):
     out = {"timing": {}}
 
     # ---- 7a-7b and 7d-7e: every mode that launches a kernel, counted -----
+    # (per card too: _build.launch counts each launch on its card)
     t0 = time.perf_counter()
     col = vt.Collection(name="mesh-flat", dimensions=D_MAIN, metric="cosine", mesh=mesh)
     col.put_matrix(ids, corpus)  # a mesh flat index takes put_many, as JAX's
@@ -2140,7 +2179,7 @@ def mesh_phase(torch, vt, rng, inp, one, card):
     stored = normalize_rows(corpus, "l2")
     t0 = time.perf_counter()
     ivf = ShardedIvf("cosine", mesh, ids, stored, options=IVF_OPTS)
-    torch.cuda.synchronize()
+    sync_all(torch)
     ivf_build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     mvcol = vt.Collection(name="mesh-c5", dimensions=MV_D, metric="cosine",
@@ -2152,45 +2191,46 @@ def mesh_phase(torch, vt, rng, inp, one, card):
     with PathCalls(fs, ms) as calls:
         t0 = time.perf_counter()
         got = col.search_batch(queries, limit=10)
-        torch.cuda.synchronize()
+        sync_all(torch)
         first_s = time.perf_counter() - t0
         got_q = col.quantized_search_batch(queries, **quant)
         got_f = col.funnel_search_batch(queries, **funnel)
         got_h = col.hybrid_search_batch(queries, limit=10, generators=gens)
         ivf_rows, _raws = ivf.search_device(qdev, nprobe=IVF_OPTS["n_probe"], k=10)
         got_mv = mvcol.multi_vector_search_batch(sets, limit=10)
-        torch.cuda.synchronize()
+        sync_all(torch)
     launches = {**fs.LAUNCHES, **ms.LAUNCHES}
-    for name in ("gmin_scan", "rescore", "stage_gmin_scan", "sign_scan", "extract_group_rows",
-                 "maxsim_rank_scan"):
-        assert launches[name] > 0, f"{name} not launched on the mesh: {launches}"
+    card_launches = cards_launched(_build, mesh, (
+        "gmin_scan", "rescore", "stage_gmin_scan", "sign_scan", "extract_group_rows",
+        "maxsim_rank_scan"), f"{tag}a-{tag}e")
     assert col.index.reruns == 0, f"plain-scan reruns on the mesh: {col.index.reruns}"
     assert col.host_routes == 0 and mvcol.host_routes == 0, (col.host_routes, mvcol.host_routes)
-    flat_swaps = same_rows(got, inp["exact"], "7a flat")
-    swaps = {"quantized": same_rows(got_q, inp["got_q"], "7b quantized"),
-             "funnel": same_rows(got_f, inp["got_f"], "7b funnel"),
-             "hybrid": same_rows(got_h, inp["got_h"], "7b flat hybrid"),
-             "maxsim": same_rows(got_mv, inp["mv_exact"], "7e MaxSim")}
+    flat_swaps = same_rows(got, inp["exact"], f"{tag}a flat")
+    swaps = {"quantized": same_rows(got_q, inp["got_q"], f"{tag}b quantized"),
+             "funnel": same_rows(got_f, inp["got_f"], f"{tag}b funnel"),
+             "hybrid": same_rows(got_h, inp["got_h"], f"{tag}b flat hybrid"),
+             "maxsim": same_rows(got_mv, inp["mv_exact"], f"{tag}e MaxSim")}
     ivf_ids = [[ids[r] for r in row if r >= 0] for row in ivf_rows.cpu().tolist()]
     ivf_recall = recall_at(ivf_ids, exact_ids)
     assert ivf_recall >= IVF_RECALL_MIN, f"mesh IVF recall@10 {ivf_recall}"
-    log(f"  7a flat ({N_CORPUS}x{D_MAIN} over {MESH_SHARDS} shards of "
+    log(f"  {tag}a flat ({N_CORPUS}x{D_MAIN} over {shards} shards of "
         f"{col.index._sharded._x.rows} rows): put_matrix (through put_many) {put_s:.1f}s, "
         f"first search_batch (shards + upload + search) {first_s:.1f}s; ids equal phase 4's "
         f"({flat_swaps} near-tie swaps), plain-scan reruns 0 {card}")
-    log(f"  7b configs 3 and 4 and the flat hybrid on the mesh: ids equal phases 4b and 4e "
-        f"(near-tie swaps {swaps}); 7d IVF build {ivf_build_s:.2f}s, recall@10 "
-        f"{ivf_recall:.4f} at n_probe {IVF_OPTS['n_probe']}; 7e config 5 put_tokens "
+    log(f"  {tag}b configs 3 and 4 and the flat hybrid on the mesh: ids equal phases 4b and "
+        f"4e (near-tie swaps {swaps}); {tag}d IVF build {ivf_build_s:.2f}s, recall@10 "
+        f"{ivf_recall:.4f} at n_probe {IVF_OPTS['n_probe']}; {tag}e config 5 put_tokens "
         f"{mv_put_s:.1f}s, ids equal phase 6's on {len(sets)} sets; host routes 0; launches "
-        f"{launches} {card}")
-    errs, rels = calls.check(torch, "7 mesh", card)
+        f"{launches}, per card {card_launches} {card}")
+    errs, rels = calls.check(torch, f"{tag} mesh", card)
 
     # each recorded kernel call at its shard shape, timed
     shard_ms = {}
     for (name, _sig), (args, kwargs) in calls.calls.items():
         count = PATH_KERNELS[name][0]
         holder = fs if hasattr(fs, name) else ms
-        t = cuda_ms(torch, lambda: getattr(holder, name)(*args, **kwargs), reps=5)
+        with on_card(torch, args[0]):  # the events on the kernel's card
+            t = cuda_ms(torch, lambda: getattr(holder, name)(*args, **kwargs), reps=5)
         # the mesh runs K2 on f32 flat shards and on IVF's bf16 shards
         key = "rescore_ivf" if count == "rescore" and args[0].dtype == torch.bfloat16 else count
         shard_ms[key] = max(shard_ms.get(key, 0.0), t)
@@ -2212,8 +2252,8 @@ def mesh_phase(torch, vt, rng, inp, one, card):
         "maxsim": lambda: mvcol._mv_full_scan(cache, qtok, qmask, metric="cosine", k=10),
     }
     for mode, fn in runs.items():
-        out["timing"][mode] = (host_ms(torch, fn),
-                               *profile_runs(torch, {f"mesh {mode}": fn}, card)[f"mesh {mode}"])
+        out["timing"][mode] = (host_ms(torch, fn), *profile_runs(
+            torch, {f"{tag} mesh {mode}": fn}, card, by_card=True)[f"{tag} mesh {mode}"])
     hyb_ms = host_ms(torch, lambda: col.hybrid_search_batch(queries, limit=10, generators=gens),
                      reps=1)
     assert sharded.reruns == 0 and col.host_routes == 0 and mvcol.host_routes == 0
@@ -2233,7 +2273,7 @@ def mesh_phase(torch, vt, rng, inp, one, card):
     # ef 64 and wider beams, not gated
     t0 = time.perf_counter()
     knn = ShardedHnsw("cosine", mesh, ids, stored, options=HNSW_OPTS)
-    torch.cuda.synchronize()
+    sync_all(torch)
     knn_build_s = time.perf_counter() - t0
     knn_recalls = {e: recall_of(knn, e) for e in (ef, 2 * ef, 4 * ef)}
     knn_recall = knn_recalls[ef]
@@ -2241,23 +2281,23 @@ def mesh_phase(torch, vt, rng, inp, one, card):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     hnsw = ShardedHnsw("cosine", mesh, ids, stored, options=MESH_HNSW_OPTS)
-    torch.cuda.synchronize()
+    sync_all(torch)
     hnsw_build_s = time.perf_counter() - t0
     hnsw_recall = recall_of(hnsw)
     assert hnsw_recall >= HNSW_RECALL_MIN, f"mesh HNSW recall@10 {hnsw_recall}"
     out["timing"]["hnsw"] = (host_ms(torch, lambda: hnsw.search_device(qdev, ef=ef, k=10)),
-                             *profile_runs(torch, {"mesh hnsw": lambda: hnsw.search_device(
-                                 qdev, ef=ef, k=10)}, card)["mesh hnsw"])
+                             *profile_runs(torch, {f"{tag} mesh hnsw": lambda: hnsw.search_device(
+                                 qdev, ef=ef, k=10)}, card, by_card=True)[f"{tag} mesh hnsw"])
     new = near_queries(rng, stored, MESH_PUT_MANY)
     new_ids = [f"new-{i:05d}" for i in range(MESH_PUT_MANY)]
     t0 = time.perf_counter()
     hnsw.incremental_put(new_ids, new)
-    torch.cuda.synchronize()
+    sync_all(torch)
     put_many_s = time.perf_counter() - t0
     gone = rng.choice(len(ids), MESH_DELETES, replace=False)
     t0 = time.perf_counter()
     removed = hnsw.incremental_delete([ids[i] for i in gone])
-    torch.cuda.synchronize()
+    sync_all(torch)
     delete_s = time.perf_counter() - t0
     assert removed == MESH_DELETES, removed
     all_ids = ids + new_ids
@@ -2275,7 +2315,7 @@ def mesh_phase(torch, vt, rng, inp, one, card):
         assert not any(i in gone_ids for row in got_ids for i in row), "a deleted id returned"
         recalls[label] = recall_at(got_ids, truth)
         assert recalls[label] >= HNSW_RECALL_MIN, f"mesh HNSW recall@10 {label} {recalls}"
-    log(f"  7c ShardedHnsw ({MESH_SHARDS} shards): the auto (kNN) build per shard "
+    log(f"  {tag}c ShardedHnsw ({shards} shards): the auto (kNN) build per shard "
         f"{knn_build_s:.1f}s, recall@10 "
         + ", ".join(f"{v:.4f} at ef {e}" for e, v in knn_recalls.items())
         + f" ({'below' if knn_recall < HNSW_RECALL_MIN else 'at or above'} the "
@@ -2292,7 +2332,7 @@ def mesh_phase(torch, vt, rng, inp, one, card):
     f1 = dict(limit=10, candidates=FUNNEL_C, stages=list(FUNNEL_STAGES))
     q1 = dict(limit=10, candidates=QUANT_C)
     want_f, want_q = col3.funnel_search_batch(qs3, **f1), col3.quantized_search_batch(qs3, **q1)
-    mesh2 = make_mesh([dev] * 4, data=2)
+    mesh2 = make_mesh(list(mesh.devices[0]), data=2)
     col2 = vt.Collection(name="mesh-config-1", dimensions=data3.shape[1], metric="cosine",
                          mesh=mesh2)
     col2.put_matrix(ids3, data3)
@@ -2300,20 +2340,20 @@ def mesh_phase(torch, vt, rng, inp, one, card):
     with PathCalls(fs, ms) as calls:
         got2 = (col2.search_batch(qs3, limit=10), col2.funnel_search_batch(qs3, **f1),
                 col2.quantized_search_batch(qs3, **q1))
-        torch.cuda.synchronize()
+        sync_all(torch)
     launches2 = {**fs.LAUNCHES, **ms.LAUNCHES}
     # shards of 50,048 rows: the fused flat search (K1 + K2) and the funnel's
     # K5 + K7; the quantized stage's group cover starts at 65,536 rows
-    for name in ("gmin_scan", "rescore", "stage_gmin_scan", "extract_group_rows"):
-        assert launches2[name] > 0, f"{name} not launched on data 2: {launches2}"
-    swaps2 = {"flat": same_rows(got2[0], got3, "7f flat"),
-              "funnel": same_rows(got2[1], want_f, "7f funnel"),
-              "quantized": same_rows(got2[2], want_q, "7f quantized")}
+    card_launches2 = cards_launched(_build, mesh2, (
+        "gmin_scan", "rescore", "stage_gmin_scan", "extract_group_rows"), f"{tag}f data 2")
+    swaps2 = {"flat": same_rows(got2[0], got3, f"{tag}f flat"),
+              "funnel": same_rows(got2[1], want_f, f"{tag}f funnel"),
+              "quantized": same_rows(got2[2], want_q, f"{tag}f quantized")}
     assert col2.host_routes == 0 and col2.index.reruns == 0
-    log(f"  7f data 2 x shard 2 at config 1 ({data3.shape[0]}x{data3.shape[1]}, "
+    log(f"  {tag}f data 2 x shard 2 at config 1 ({data3.shape[0]}x{data3.shape[1]}, "
         f"{len(qs3)} queries): flat, funnel and quantized equal one device's (near-tie swaps "
-        f"{swaps2}); launches {launches2} {card}")
-    errs2, _rels2 = calls.check(torch, "7f mesh data 2", card)
+        f"{swaps2}); launches {launches2}, per card {card_launches2} {card}")
+    errs2, _rels2 = calls.check(torch, f"{tag}f mesh data 2", card)
     del col2, calls, got2
 
     t = out["timing"]
@@ -2323,20 +2363,190 @@ def mesh_phase(torch, vt, rng, inp, one, card):
                     f"{max(0.0, 1 - t[m][1] / t[m][2]):.1%} vs busy {one_t[m][1]:.3f}, idle "
                     f"{max(0.0, 1 - one_t[m][1] / one_t[m][2]):.1%})" for m in t)
         + f"; flat hybrid sync {hyb_ms:.1f} ms {card}")
+    if seven is not None:
+        log(f"  {tag} per mode on the cards, ms per batch (virtual mesh, one device) and each "
+            "card's busy ms: " + "; ".join(
+                f"{m} {t[m][0]:.3f} ({seven[m][0]:.3f}, {one_t[m][0]:.3f}) busy "
+                + "/".join(f"{v:.3f}" for v in t[m][3].values()) for m in t) + f" {card}")
     out.update(launches=launches, errs=errs, rels=rels, shard_ms=shard_ms,
-               launches2=launches2, errs2=errs2,
+               launches2=launches2, errs2=errs2, card_launches=card_launches,
+               card_launches2=card_launches2,
                hnsw_recall=hnsw_recall, hnsw_recalls=recalls, hnsw_build_s=hnsw_build_s,
                knn_recall=knn_recall, knn_build_s=knn_build_s,
                ivf_recall=ivf_recall, ivf_build_s=ivf_build_s, put_s=put_s)
     return out
 
 
-def profile_runs(torch, runs, card, reps=3, warm=True):
+def cards_line(torch):
+    """Every card's ``nvidia-smi --query-gpu=name,power.limit`` line and
+    which pairs of cards have peer access; the label of phase 8's lines."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[:CARDS]
+    for i, line in enumerate(smi):
+        log(f"  cuda:{i}: {line}")
+    peers = {f"{a}-{b}": torch.cuda.can_device_access_peer(a, b)
+             for a in range(CARDS) for b in range(CARDS) if a != b}
+    log(f"  peer access between the cards: {peers}")
+    return "[" + "; ".join(smi) + "]"
+
+
+def big_oracle(torch, xs, q, limit):
+    """Exact top-``limit + 4`` of every query in float64, card by card over
+    float64 chunks of each shard (global row = shard * rows + row), merged
+    by (score desc, row asc): ``[(ids, scores)]``, ids the zero-padded
+    rows."""
+    width = limit + 4
+    scores, rows = [], []
+    for s, x in enumerate(xs):
+        q64 = torch.from_numpy(q).to(x.device, torch.float64)
+        for lo in range(0, x.shape[0], BIG_CHUNK):
+            sims = x[lo:lo + BIG_CHUNK].double() @ q64.T  # [chunk, queries]
+            v, i = sims.topk(min(width, sims.shape[0]), dim=0)
+            scores.append(v.T.cpu().numpy())
+            rows.append((i.T + s * x.shape[0] + lo).cpu().numpy())
+            del sims
+    scores, rows = np.concatenate(scores, axis=1), np.concatenate(rows, axis=1)
+    out = []
+    for b in range(q.shape[0]):
+        order = sorted(range(scores.shape[1]), key=lambda j: (-scores[b, j], rows[b, j]))[:width]
+        out.append(([f"{rows[b, j]:08d}" for j in order], [float(scores[b, j]) for j in order]))
+    return out
+
+
+def big_block(torch, rng, devices, card):
+    """Phase 8b: a flat block larger than one card, ``BIG_SHARD`` rows per
+    card generated there by ``synth.clustered`` (clusters of 100 rows,
+    radius 0.4) with no host copy, valid rows, lex rank = global row;
+    ``sharded_search`` of 512 near-queries at cosine, k = 10: 16 queries'
+    ids against a float64 oracle, every K1 / K2 launch held against its
+    plain version (K1 on the first ``BIG_CHECK`` rows of its shard, K2 at
+    the path's shapes), ms per batch, each card's busy ms, gathered bytes,
+    memory and reruns. Returns the launches, errors and K1's ms per card."""
+    from vettore_tpu_torch import _build, synth
+    from vettore_tpu_torch.ops import flat_scan as fs
+    from vettore_tpu_torch.parallel import make_mesh, sharded_search
+    from vettore_tpu_torch.parallel.cost import gathered_bytes
+
+    mesh = make_mesh() if devices is None else make_mesh(devices)
+    devs = list(mesh.devices[0])
+    rows, d = BIG_SHARD, D_MAIN
+    t0 = time.perf_counter()
+    xs = []
+    for s, dev in enumerate(devs):
+        x = torch.empty((rows, d), dtype=torch.float32, device=dev)
+        for c, lo in enumerate(range(0, rows, BIG_CHUNK)):
+            n = min(BIG_CHUNK, rows - lo)
+            x[lo:lo + n] = synth.clustered(n, d, max(1, n // 100), 0.4, SEED + 1000 * s + c,
+                                           device=dev)
+        xs.append(x)
+    sync_all(torch)
+    gen_s = time.perf_counter() - t0
+    bx = mesh.place(xs)  # each shard already on its card: placed, not copied
+    bv = mesh.place([torch.ones(rows, dtype=torch.bool, device=dev) for dev in devs])
+    bl = mesh.place([torch.arange(s * rows, (s + 1) * rows, dtype=torch.int32, device=dev)
+                     for s, dev in enumerate(devs)])
+    total = len(devs) * rows
+    # near-queries: 512 distinct rows of the block plus noise at the radius
+    picks = rng.choice(total, B_MAIN, replace=False)
+    base = np.empty((B_MAIN, d), np.float32)
+    for s, x in enumerate(xs):
+        mine = np.flatnonzero(picks // rows == s)
+        base[mine] = x[torch.from_numpy(picks[mine] % rows).to(x.device)].cpu().numpy()
+    q = base + np.float32(0.4 / np.sqrt(d)) * rng.standard_normal((B_MAIN, d), dtype=np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qdev = torch.from_numpy(q).to(mesh.first)
+
+    def run():
+        return sharded_search(mesh, bx, bv, bl, qdev, metric="cosine", k=10)
+
+    reset_counts(fs)
+    with PathCalls(fs) as calls:
+        t1 = time.perf_counter()
+        slots, raws = run()
+        sync_all(torch)
+        first_s = time.perf_counter() - t1
+    launches = dict(fs.LAUNCHES)
+    card_launches = cards_launched(_build, mesh, ("gmin_scan", "rescore"), "8b")
+    assert mesh.reruns == 0, f"8b plain-scan reruns: {mesh.reruns}"
+    truth = big_oracle(torch, xs, q[:BIG_ORACLE], 10)
+    slots, raws = slots.cpu().numpy(), raws.cpu().numpy()
+    swaps = sum(check_hits([(f"{r:08d}", float(w)) for r, w in zip(slots[b], raws[b]) if r >= 0],
+                           truth[b], 10) for b in range(BIG_ORACLE))
+    # each card's K1 and K2 calls against their plain versions
+    errs, k1_ms = {}, {}
+    for (name, _sig), (args, kwargs) in calls.calls.items():
+        x, xsq, bias, qq = args[:4]
+        if name == "gmin_scan":
+            with on_card(torch, x):
+                k1_ms[x.device.index] = cuda_ms(torch, lambda: fs.gmin_scan(*args, **kwargs),
+                                                reps=5)
+            part = [t[:BIG_CHECK] for t in (x, xsq, bias)]
+            got = fs.gmin_scan(*part, qq, **kwargs)[0]
+            want = fs._gmin_scan_ref(*part, qq, **kwargs)
+            tol = K1_ATOL["f32"]
+        else:
+            got = fs.rescore(*args, **kwargs)
+            want = fs._rescore_ref(*args, **kwargs)
+            tol = K2_ATOL
+        err, _rel = abs_rel_err(got, want)
+        assert err <= tol, f"8b {name} on {x.device}: err {err}"
+        errs[PATH_KERNELS[name][0]] = max(errs.get(PATH_KERNELS[name][0], 0.0), err)
+        del got, want
+    del calls, args, kwargs
+    torch.cuda.empty_cache()
+    batch_ms = host_ms(torch, run, reps=5)
+    merge_bytes = gathered_bytes(mesh, run)
+    busy, wall, per_card = profile_runs(torch, {"8b sharded_search": run}, card,
+                                        by_card=True)["8b sharded_search"]
+    mem = [torch.cuda.memory_allocated(dev) / 2**30 for dev in devs]
+    assert mesh.reruns == 0, f"8b plain-scan reruns: {mesh.reruns}"
+    k1_bound = bound(3 * 2 * rows * d * B_MAIN, "tf32", 4 * (rows * d + 2 * rows + 2 * B_MAIN * d
+                                                            + B_MAIN + B_MAIN * rows // 64))
+    log(f"  8b block {len(devs)} x {rows} x {d} f32 ({4 * total * d / 1e9:.1f} GB) generated on "
+        f"the cards in {gen_s:.1f}s; first sharded_search {first_s:.2f}s; ids of "
+        f"{BIG_ORACLE} queries equal the float64 oracle ({swaps} near-tie swaps), scores "
+        f"within {SCORE_TOL}; K1 (first {BIG_CHECK} rows of each shard) and K2 held, errs "
+        f"{errs}; launches {launches}, per card {card_launches}; reruns {mesh.reruns} {card}")
+    log(f"  8b per batch of {B_MAIN}: {batch_ms:.3f} ms (every card synchronised), busy "
+        f"{busy:.3f} ms summed over the cards, per card "
+        + ", ".join(f"cuda:{i} {v:.3f}" for i, v in per_card.items())
+        + f"; K1 alone per card at {rows} rows "
+        + ", ".join(f"cuda:{i} {v:.3f}" for i, v in sorted(k1_ms.items()))
+        + f" ms (bound {k1_bound[0]:.3f}); gathered {merge_bytes} bytes per batch; memory "
+        "allocated " + ", ".join(f"{m:.1f}" for m in mem) + f" GiB {card}")
+    del xs, bx, bv, bl
+    torch.cuda.empty_cache()
+    return {"launches": launches, "card_launches": card_launches, "errs": errs,
+            "ms": batch_ms, "busy": per_card, "k1_ms": k1_ms, "gen_s": gen_s,
+            "bytes": merge_bytes}
+
+
+def cards_phase(torch, vt, rng, inp, one, seven):
+    """Phase 8: the mesh over four real cards (``make_mesh()``, every card,
+    when the machine has four; cards 0-3 when it has more): 8a, phase 7's
+    runs on the cards (``mesh_phase``), then 8b, a flat block larger than
+    one card (``big_block``). Returns both's outputs."""
+    devices = None if torch.cuda.device_count() == CARDS else [
+        torch.device("cuda", i) for i in range(CARDS)]
+    card = cards_line(torch)
+    t0 = time.perf_counter()
+    out = mesh_phase(torch, vt, rng, inp, one, card, devices=devices, tag="8a/7", seven=seven)
+    torch.cuda.empty_cache()
+    log(f"  8a phase 7's runs on {CARDS} cards: {time.perf_counter() - t0:.1f}s {card}")
+    t0 = time.perf_counter()
+    out["big"] = big_block(torch, rng, devices, card)
+    log(f"  8b: {time.perf_counter() - t0:.1f}s {card}")
+    return out
+
+
+def profile_runs(torch, runs, card, reps=3, warm=True, by_card=False):
     """Traces ``reps`` calls of each run with ``torch.profiler`` (after one
     untraced call unless ``warm`` is false: a write runs once) and prints
     device-busy and wall ms per call, the device's idle share, and the
     kernels that took the most device time. Returns (busy, wall) ms per
-    call by label."""
+    call by label (busy summed over the cards), and with ``by_card`` also
+    ``{card index: busy ms per call}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2344,12 +2554,12 @@ def profile_runs(torch, runs, card, reps=3, warm=True):
     for label, fn in runs.items():
         if warm:
             fn()
-        torch.cuda.synchronize()
+        sync_all(torch)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
+            sync_all(torch)
             wall = 1e3 * (time.perf_counter() - t0) / reps
         # device events only: an operator's row repeats its kernels' time
         kernels = sorted((e for e in prof.key_averages() if e.device_type != DeviceType.CPU),
@@ -2360,7 +2570,42 @@ def profile_runs(torch, runs, card, reps=3, warm=True):
         log(f"  profile {label}: device busy {busy:.3f} ms per call, wall {wall:.3f} ms, "
             f"idle {max(0.0, 1 - busy / wall):.1%}; top kernels (ms per call): {top} {card}")
         out[label] = (busy, wall)
+        if by_card:
+            cards = {}
+            for e in prof.events():
+                if e.device_type != DeviceType.CPU:
+                    cards[e.device_index] = (cards.get(e.device_index, 0.0)
+                                             + e.self_device_time_total / 1e3 / reps)
+            cards = dict(sorted(cards.items()))
+            if len(cards) > 1:
+                log(f"  profile {label} per card: " + ", ".join(
+                    f"cuda:{i} busy {v:.3f} ms, idle {max(0.0, 1 - v / wall):.1%}"
+                    for i, v in cards.items()) + f" {card}")
+            out[label] = (busy, wall, cards)
     return out
+
+
+def sync_all(torch):
+    """Waits for every visible card (``torch.cuda.synchronize()`` waits for
+    the current one only)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def on_card(torch, t):
+    """The device guard of ``t``'s card (nothing for a CPU tensor)."""
+    return torch.cuda.device(t.device) if t.is_cuda else contextlib.nullcontext()
+
+
+def cards_launched(build, mesh, names, label):
+    """Each of ``names`` launched on every card of ``mesh`` since the counts
+    were reset (``build.CARD_LAUNCHES``, counted where a kernel launches):
+    ``{name: [launches per card]}``, cards in index order."""
+    cards = sorted({d.index or 0 for d in mesh.distinct()})
+    counts = {name: [build.CARD_LAUNCHES.get((name, c), 0) for c in cards] for name in names}
+    missing = {name: n for name, n in counts.items() if not all(n)}
+    assert not missing, f"{label}: kernels a card did not launch (cards {cards}): {missing}"
+    return counts
 
 
 def main() -> int:
@@ -2678,9 +2923,7 @@ def main() -> int:
                       "sign_scan": adaptive_times["k6"],
                       "extract_group_rows": adaptive_times["k7"],
                       "maxsim_rank_scan": mv_times["maxsim_rank_scan"]["ms"]}}
-    mesh_out = mesh_phase(torch, vt, rng, mesh_in, one, card)
-    col3.close()
-    del mesh_in, corpus, got
+    mesh_out = mesh_phase(torch, vt, rng, mesh_in, one, card, devices=[dev] * MESH_SHARDS)
     torch.cuda.empty_cache()
     log(f"[phase 7] the mesh ({MESH_SHARDS} virtual shards of one card): flat, configs 3 and "
         f"4, the flat hybrid, config 5 MaxSim and data 2 x shard 2 equal one device; HNSW "
@@ -2690,6 +2933,23 @@ def main() -> int:
         + f" after the writes; IVF recall@10 {mesh_out['ivf_recall']:.4f} (build "
         f"{mesh_out['ivf_build_s']:.2f}s); every kernel held at its shard shapes "
         f"({time.perf_counter() - t0:.1f}s)")
+
+    # ---- phase 8: the mesh over four real cards ---------------------------
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    cards_out = None
+    if n_cards >= CARDS:
+        cards_out = cards_phase(torch, vt, rng, mesh_in, one, mesh_out["timing"])
+        big = cards_out["big"]
+        log(f"[phase 8] the mesh over {CARDS} cards: phase 7's runs equal one device, every "
+            f"card launched each kernel its shards run; the {CARDS} x {BIG_SHARD} x {D_MAIN} "
+            f"block (larger than one card) equals the float64 oracle, {big['ms']:.3f} ms per "
+            f"batch of {B_MAIN} ({time.perf_counter() - t0:.1f}s)")
+    else:
+        log(f"[phase 8] {n_cards} card(s): not run")
+    col3.close()
+    del mesh_in, corpus, got
+    torch.cuda.empty_cache()
 
     # bounds from this run's shapes: the cosine main configurations, config
     # 5's full bf16 and f32 blocks; K2 and K4 read the distinct selected rows
@@ -2774,6 +3034,16 @@ def main() -> int:
             "extract_group_rows", "maxsim_rank_scan")),
         # 7f, data 2 x shard 2 at config 1: the f32 rows of what it launched
         "mesh data 2": (mesh_out["launches2"], mesh_out["errs2"], tuple(mesh_out["errs2"]))}
+    if cards_out is not None:
+        # phase 8: 8a's runs (as phase 7's, with data 2) and 8b's K1 + K2
+        cards_launches = {name: cards_out["launches"][name] + cards_out["launches2"][name]
+                          + cards_out["big"]["launches"].get(name, 0)
+                          for name in cards_out["launches"]}
+        cards_errs = dict(cards_out["errs"])
+        for more in (cards_out["errs2"], cards_out["big"]["errs"]):
+            for name, e in more.items():
+                cards_errs[name] = max(cards_errs.get(name, 0.0), e)
+        new_paths["mesh cards"] = (cards_launches, cards_errs, new_paths["mesh"][2])
 
     def base(name):
         return (name.removesuffix("_bf16").removesuffix("_f32").removesuffix("_fde")
@@ -2800,9 +3070,13 @@ def main() -> int:
             k["kernel_ms"] = adaptive_times["k7_kernel"]
         # the mesh's: the error of every row (null where the mesh launched
         # none) and the ms at the shard shapes
-        for path in ("mesh", "mesh data 2"):
+        for path in ("mesh", "mesh data 2", "mesh cards"):
             k["max_abs_err_on_new_paths"].setdefault(path, None)
         k["mesh_ms"] = mesh_out["shard_ms"].get(k["name"])
+        # phase 8 (null where it did not run): launches on the cards and the
+        # ms at the shard shapes on the cards
+        k["launches_on_new_paths"].setdefault("mesh cards", None)
+        k["mesh_cards_ms"] = cards_out["shard_ms"].get(k["name"]) if cards_out else None
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

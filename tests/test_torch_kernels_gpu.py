@@ -1091,3 +1091,125 @@ def test_mmr_on_card_matches_the_host_loop(cuda):
         for i in range(b):
             pool = [(lists[i][j][0], [float(v) for v in vecs[i, j]]) for j in range(k)]
             assert got[i] == mmr.mmr_rerank(lists[i], pool, metric, 0.5, 10)
+
+
+# ---------------------------------------------------------------------------
+# Several cards: every wrapper launches on its operands' card with that card
+# made current (``_build.launch``), whatever card the caller has current,
+# and leaves the caller's current; operands on two cards are refused; the
+# mesh over every card returns one device's ids. Skipped with fewer than 2
+# cards.
+# ---------------------------------------------------------------------------
+
+WRAPPERS = ("gmin_scan", "rescore", "int8_gmin_scan", "int8_rescore", "stage_gmin_scan",
+            "fused_sign_scan", "extract_group_rows", "maxsim_rank_scan")
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _wrapper_call(name, device):
+    """``(fn, args, kwargs)`` of one call of wrapper ``name`` on operands
+    made on ``device`` from a fixed seed."""
+    from vettore_tpu_torch.ops import maxsim as ms
+
+    n, d, b = 4096, 96, 70
+    if name in ("gmin_scan", "rescore", "stage_gmin_scan"):
+        x, xsq, bias, q = _operands(n, d, b, "f32", device)
+        if name == "gmin_scan":
+            return fs.gmin_scan, (x, xsq, bias, q), {"metric": "cosine"}
+        if name == "stage_gmin_scan":
+            return fs.stage_gmin_scan, (x, xsq, bias, q), {"metric": "cosine", "dims": 33}
+        gidx = _rescore_selection("topk", fs._gmin_scan_ref(x, xsq, bias, q, metric="l2"), 12)
+        return fs.rescore, (x, xsq, bias, q, gidx), {"metric": "l2"}
+    if name in ("int8_gmin_scan", "int8_rescore"):
+        x8, scale, xsq, bias, q, q8, qscale, qsq = _int8_operands(n, d, b, device)
+        if name == "int8_gmin_scan":
+            return fs.int8_gmin_scan, (x8, scale, xsq, bias, q8, qscale, qsq), {"metric": "l2"}
+        gidx = _rescore_selection("overlap", torch.zeros((b, n // 64), device=device), 12)
+        return fs.int8_rescore, (x8, scale, xsq, bias, q, gidx), {"metric": "cosine"}
+    if name == "fused_sign_scan":
+        return fs.fused_sign_scan, _signs(n, 128, b, device), {"d": 128}
+    if name == "extract_group_rows":
+        rng = np.random.default_rng(4)
+        mat = torch.from_numpy(rng.standard_normal((b, 300, 64)).astype(np.float32)).to(device)
+        gidx = torch.from_numpy(rng.integers(0, 300, (b, 65)).astype(np.int32)).to(device)
+        return fs.extract_group_rows, (mat, gidx), {}
+    tokens, counts, dbias, qt, qinv = _mv_operands(256, 32, 128, 8, 4, "bf16", device)
+    return ms.maxsim_rank_scan, (tokens, counts, dbias, qt, qinv), {"b": 8, "metric": "cosine"}
+
+
+def _flat(out):
+    return [t for t in (out if isinstance(out, tuple) else (out,)) if isinstance(t, torch.Tensor)]
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_wrapper_launches_on_its_operands_card(two_cards, name):
+    """Each wrapper on cuda:1 while cuda:0 is current gives what the same
+    call gives on cuda:0, counts its launch on cuda:1, and leaves cuda:0
+    current."""
+    from vettore_tpu_torch import _build
+
+    card0, card1 = two_cards
+    torch.cuda.set_device(card0)
+    fn, args0, kwargs = _wrapper_call(name, card0)
+    want = [t.cpu() for t in _flat(fn(*args0, **kwargs))]
+    _fn, args1, _kwargs = _wrapper_call(name, card1)
+    before = sum(n for (_k, index), n in _build.CARD_LAUNCHES.items() if index == 1)
+    got = _flat(fn(*args1, **kwargs))
+    torch.cuda.synchronize(card1)
+    assert torch.cuda.current_device() == 0
+    assert all(t.device == card1 for t in got)
+    assert sum(n for (_k, index), n in _build.CARD_LAUNCHES.items() if index == 1) > before
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_wrapper_refuses_operands_on_two_cards(two_cards, name):
+    """A block on one card with its query (or indices) on another raises
+    ``ValueError``: no peer pointer reaches a kernel."""
+    card0, card1 = two_cards
+    fn, args, kwargs = _wrapper_call(name, card0)
+    moved = list(args)
+    moved[-1] = moved[-1].to(card1)  # the last operand: queries, indices or qinv
+    with pytest.raises(ValueError, match="operands on"):
+        fn(*moved, **kwargs)
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+def test_sharded_flat_over_every_card_equals_one_device(two_cards, storage):
+    """``ShardedFlat`` over every card (shards of 4,096 rows: the fused
+    K1 + K2 search on each card) returns the one-device ``FlatIndex``'s
+    ids, and ``sharded_search`` over its blocks the same hits."""
+    from vettore_tpu_torch.index.flat import FlatIndex
+    from vettore_tpu_torch.parallel import ShardedFlat, make_mesh, sharded_search
+
+    cards = torch.cuda.device_count()
+    mesh = make_mesh()
+    assert mesh.shape == {"data": 1, "shard": cards}
+    assert mesh.distinct() == [torch.device("cuda", i) for i in range(cards)]
+    rng = np.random.default_rng(9)
+    n, d = 4096 * cards, 64
+    vectors = rng.normal(size=(n, d)).astype(np.float32)
+    vectors /= np.linalg.norm(vectors, axis=1, keepdims=True)
+    ids = [f"doc-{i:06d}" for i in range(n)]
+    queries = rng.normal(size=(33, d)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    sharded = ShardedFlat("cosine", mesh, ids, vectors, storage=storage)
+    one = FlatIndex("cosine", storage=storage, device="cuda")
+    one.put_many(zip(ids, vectors))
+    got = sharded.search_batch(queries, 10)
+    want = one.search_batch(queries, 10)
+    assert sharded.reruns == 0
+    assert [[h[0] for h in row] for row in got] == [[h[0] for h in row] for row in want]
+    q = torch.from_numpy(queries).to(mesh.first)
+    slots, _raws = sharded_search(mesh, sharded._x, sharded._valid, sharded._lex, q,
+                                  metric="cosine", k=10)
+    rows = sharded._x.rows
+    assert torch.equal(slots // rows * sharded.per + slots % rows, sharded.search_device(q, 10)[0])
+    assert torch.cuda.current_device() == 0

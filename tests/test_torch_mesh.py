@@ -10,7 +10,10 @@ relative) and against JAX's ``ShardedFlat`` on a 2-device JAX mesh (the
 same ids, raws within 1e-5). With the fused threshold lowered the shards
 run the kernel route (K1 + K2's plain versions on the CPU); a batch whose
 fused search is not ``ok`` (a 64-way tie) reruns on the plain scan and is
-counted.
+counted. ``sharded_search(mesh, x, valid, lex_rank, queries, *, metric,
+k)`` against JAX's on the same numpy blocks (2 and 4 virtual devices, data
+1 and 2, f32 and bf16 rows, mass ties, shards on the plain scan and on the
+fused search): the same slots, raws within 1e-6.
 """
 
 import numpy as np
@@ -144,20 +147,177 @@ def test_uneven_rows_pad(shards):
 @pytest.mark.parametrize("data,k", [(1, 5), (2, 10)])
 def test_merge_cost_model(data, k):
     """The stated merge cost model equals the bytes the gathers moved, with
-    int32 lex and slot planes (JAX's ``test_ici_merge_cost_model``)."""
+    int32 lex and slot planes (JAX's ``test_ici_merge_cost_model``), for
+    ``sharded_search`` over a ``ShardedFlat``'s blocks and for its own
+    ``search_device``."""
     ids, vectors = corpus(n=64)
     mesh = cpu_mesh(4, data)
     sharded = ShardedFlat("cosine", mesh, ids, vectors)
     b = 4
-    got = gathered_bytes(mesh, sharded_search, mesh, sharded, torch.from_numpy(vectors[:b]), k=k)
-    assert got == expected_merge_bytes(mesh.shape["shard"], b // data, k)
+    q = torch.from_numpy(vectors[:b])
+    want = expected_merge_bytes(mesh.shape["shard"], b // data, k)
+    assert gathered_bytes(mesh, sharded_search, mesh, sharded._x, sharded._valid, sharded._lex,
+                          q, metric="cosine", k=k) == want
+    assert gathered_bytes(mesh, sharded.search_device, q, k) == want
 
 
 def test_sharded_search_refuses_another_mesh():
-    ids, vectors = corpus(n=16)
-    sharded = ShardedFlat("cosine", cpu_mesh(2), ids, vectors)
+    """Blocks placed on another mesh (or not placed at all) are refused."""
+    x, valid, lex, q = blocks_of(*raw_blocks(2, 64, 16))
+    mesh, other = cpu_mesh(2), cpu_mesh(2)
+    bx, bv, bl = mesh.shard_rows(x), mesh.shard_rows(valid), mesh.shard_rows(lex)
     with pytest.raises(ValueError, match="another mesh"):
-        sharded_search(cpu_mesh(2), sharded, torch.from_numpy(vectors[:2]), k=3)
+        sharded_search(other, bx, bv, bl, q, metric="cosine", k=3)
+    with pytest.raises(ValueError, match="another mesh"):
+        sharded_search(mesh, bx, other.shard_rows(valid), bl, q, metric="cosine", k=3)
+    with pytest.raises(ValueError, match="not placed"):
+        sharded_search(mesh, x, bv, bl, q, metric="cosine", k=3)
+
+
+# ---------------------------------------------------------------------------
+# sharded_search(mesh, x, valid, lex_rank, queries, *, metric, k) against
+# JAX's on the same numpy blocks: 2 and 4 (virtual) devices, data 1 and 2,
+# f32 and bf16 rows, a mass-tie corpus, shards below FUSED_ROWS_MIN (the
+# plain scan) and above it (lowered in the port only: the fused K1 + K2
+# search). Slots equal, raws within 1e-6 where a slot is set.
+# ---------------------------------------------------------------------------
+
+JAX_LAYOUTS = [(2, 1), (2, 2), (4, 1), (4, 2)]  # (devices, data)
+
+
+def raw_blocks(shards, rows, d, *, seed=11, ties=False):
+    """A ``[shards * rows, d]`` block of unit rows (all ones under ``ties``),
+    its validity (the last rows of every shard pads, a few live rows
+    invalid) and its lex ranks (a permutation over the live rows, 2**31 - 1
+    on pads), and 6 unit queries."""
+    rng = np.random.default_rng(seed)
+    n = shards * rows
+    if ties:
+        x = np.ones((n, d), np.float32)
+        q = np.ones((6, d), np.float32)
+    else:
+        x = rng.normal(size=(n, d)).astype(np.float32)
+        q = rng.normal(size=(6, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    pad = (np.arange(n) % rows) >= rows - 3
+    x[pad] = 0.0
+    valid = ~pad
+    valid[rng.choice(np.flatnonzero(valid), 4, replace=False)] = False
+    lex = np.full(n, 2**31 - 1, np.int32)
+    live = np.flatnonzero(~pad)
+    lex[live] = rng.permutation(len(live)).astype(np.int32)
+    return x, valid, lex, q
+
+
+def blocks_of(x, valid, lex, q):
+    return (torch.from_numpy(x), torch.from_numpy(valid), torch.from_numpy(lex),
+            torch.from_numpy(q))
+
+
+def jax_search(devices, data, x, valid, lex, q, *, metric, k, bf16=False):
+    import jax.numpy as jnp
+
+    from vettore_tpu.parallel.mesh import sharded_search as jsharded_search
+
+    jmesh = jmake_mesh(jax.devices()[:devices], data=data)
+    jx = jnp.asarray(x, dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    slots, raws = jsharded_search(jmesh, jx, jnp.asarray(valid), jnp.asarray(lex),
+                                  jnp.asarray(q), metric=metric, k=k)
+    return np.asarray(slots), np.asarray(raws)
+
+
+def port_search(devices, data, x, valid, lex, q, *, metric, k, bf16=False):
+    mesh = cpu_mesh(devices // data, data)
+    tx, tv, tl, tq = blocks_of(x, valid, lex, q)
+    if bf16:
+        tx = tx.to(torch.bfloat16)
+    slots, raws = sharded_search(mesh, mesh.shard_rows(tx), mesh.shard_rows(tv),
+                                 mesh.shard_rows(tl), tq, metric=metric, k=k)
+    assert slots.dtype == torch.int32 and slots.device == mesh.first
+    return slots.numpy(), raws.numpy(), mesh
+
+
+def assert_same_search(got, want):
+    g_slots, g_raws = got
+    w_slots, w_raws = want
+    assert np.array_equal(g_slots, w_slots)
+    hit = w_slots >= 0
+    assert np.abs(g_raws[hit] - w_raws[hit]).max(initial=0.0) <= 1e-6
+
+
+@pytest.fixture(params=["plain", "fused"])
+def route(request, monkeypatch):
+    """Shards of 128 rows: the plain scan at the default FUSED_ROWS_MIN,
+    the fused search with it lowered to 64 (the kernels' plain versions on
+    the CPU). Counts the fused calls."""
+    calls = {"n": 0, "route": request.param}
+    if request.param == "fused":
+        monkeypatch.setattr(tflat, "FUSED_ROWS_MIN", 64)
+    real = flat_scan.fused_flat_search
+
+    def counted(*args, **kwargs):
+        calls["n"] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(flat_scan, "fused_flat_search", counted)
+    return calls
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("devices,data", JAX_LAYOUTS)
+def test_sharded_search_equals_jax(route, devices, data, metric):
+    blocks = raw_blocks(devices // data, 128, 16)
+    got = port_search(devices, data, *blocks, metric=metric, k=10)
+    assert_same_search(got[:2], jax_search(devices, data, *blocks, metric=metric, k=10))
+    fused = route["route"] == "fused"
+    assert route["n"] == (devices if fused else 0) and got[2].reruns == 0
+
+
+@pytest.mark.parametrize("devices,data", JAX_LAYOUTS)
+def test_sharded_search_bf16_rows_equal_jax(route, devices, data):
+    x, valid, lex, q = raw_blocks(devices // data, 128, 16, seed=5)
+    x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()  # bf16-exact rows
+    got = port_search(devices, data, x, valid, lex, q, metric="cosine", k=10, bf16=True)
+    want = jax_search(devices, data, x, valid, lex, q, metric="cosine", k=10, bf16=True)
+    assert_same_search(got[:2], want)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+@pytest.mark.parametrize("devices,data", JAX_LAYOUTS)
+def test_sharded_search_mass_ties_equal_jax(route, devices, data, metric):
+    """Every live row ties: the (rank, lex rank) merge orders them, and a
+    fused shard batch spills past its slack and reruns on the plain scan."""
+    blocks = raw_blocks(devices // data, 128, 8, ties=True)
+    got = port_search(devices, data, *blocks, metric=metric, k=10)
+    assert_same_search(got[:2], jax_search(devices, data, *blocks, metric=metric, k=10))
+    assert got[2].reruns == (devices if route["route"] == "fused" else 0)
+
+
+@pytest.mark.parametrize("k", [5, 200])
+def test_sharded_search_small_shards_equal_jax(k):
+    """Shards of 40 rows (no whole 64-row group) and k past a shard's rows:
+    the plain scan, as JAX's ``_local_topk``."""
+    blocks = raw_blocks(4, 40, 16, seed=2)
+    got = port_search(4, 1, *blocks, metric="cosine", k=k)
+    assert_same_search(got[:2], jax_search(4, 1, *blocks, metric="cosine", k=k))
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_sharded_search_on_sharded_flat_blocks(route, metric):
+    """``sharded_search`` over a ``ShardedFlat``'s own blocks returns its
+    hits: global slot shard * rows + row there, shard * per + row in the
+    index's layout."""
+    ids, vectors = corpus(n=700)
+    mesh = cpu_mesh(3)
+    sharded = ShardedFlat(metric, mesh, ids, vectors)
+    q = torch.from_numpy(queries())
+    slots, raws = sharded_search(mesh, sharded._x, sharded._valid, sharded._lex, q,
+                                 metric=metric, k=10)
+    want_slots, want_raws = sharded.search_device(q, 10)
+    rows = sharded._x.rows
+    mapped = torch.where(slots >= 0, slots // rows * sharded.per + slots % rows, -1)
+    assert torch.equal(mapped, want_slots) and torch.allclose(raws, want_raws, atol=1e-6)
 
 
 def test_invalidate_ids_masks_rows():

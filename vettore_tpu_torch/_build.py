@@ -12,6 +12,9 @@ function, is looked up through the runtime's driver entry point.
 Nothing here runs at import time: the build happens only when a CUDA tensor
 first reaches a kernel wrapper, so the package imports on a machine without
 ``nvcc``.
+
+``launch`` is the one place where a kernel launch meets a device: every
+wrapper launches its kernel through it, with that device made current.
 """
 
 from __future__ import annotations
@@ -23,7 +26,10 @@ import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from collections import Counter
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -41,6 +47,9 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptx
 
 _lock = threading.Lock()
 _lib = None
+
+#: launches per (kernel name, CUDA device index), counted by ``launch``
+CARD_LAUNCHES = Counter()
 
 
 def _nvcc() -> str:
@@ -145,3 +154,26 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = load().vt_error_string(code).decode(errors="replace")
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launches ``vt_<name>`` on ``device`` (a CUDA device with its index)
+    and raises with ``name`` if it returned a CUDA error. ``args`` are the
+    entry point's arguments before its stream: tensors (passed as their
+    data pointers, each on ``device``, else ``ValueError``), integers and
+    None. The launch runs with ``device`` current, on its current stream,
+    and the caller's current device is restored after it: the C side
+    launches, sets kernel attributes and reads the SM count on whatever
+    device is current, and CUDA refuses a stream of another device."""
+    ptrs = []
+    for arg in args:
+        if isinstance(arg, torch.Tensor):
+            if arg.device != device:
+                raise ValueError(f"{name}: operands on {arg.device} and {device}")
+            arg = arg.data_ptr()
+        ptrs.append(arg)
+    entry = getattr(load(), f"vt_{name}")
+    with torch.cuda.device(device):
+        code = entry(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    check(code, name)
+    CARD_LAUNCHES[name, device.index] += 1

@@ -229,12 +229,8 @@ def gmin_scan(x, xsq, bias, q, *, metric):
     xt, ldx, x_copied = _tma_rows(x)
     qts = [_tma_rows(t) for t in parts]
     gmin = torch.empty((b, n // GROUP), dtype=torch.float32, device=x.device)
-    lib = _build.load()
-    code = lib.vt_gmin_scan(xt.data_ptr(), ldx, int(x.dtype == torch.bfloat16), xsq.data_ptr(),
-                            bias.data_ptr(), qts[0][0].data_ptr(), qts[-1][0].data_ptr(),
-                            qts[0][1], qsq.data_ptr(), gmin.data_ptr(), n, d, b,
-                            int(_is_l2(metric)), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, "gmin_scan")
+    _build.launch("gmin_scan", x.device, xt, ldx, int(x.dtype == torch.bfloat16), xsq, bias,
+                  qts[0][0], qts[-1][0], qts[0][1], qsq, gmin, n, d, b, int(_is_l2(metric)))
     _count_route("gmin_scan", x_copied, *(copied for _t, _ld, copied in qts))
     return gmin, bounded
 
@@ -332,12 +328,8 @@ def _group_rescore(name, lead, x, q, gidx, *, metric):
         gidx.contiguous(), n, d=d, elt=elt, sms=_sm_count(x.device.index))
     direct = x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0 and (d * elt) % 16 == 0
     out = torch.empty((b, gsel, GROUP), dtype=torch.float32, device=x.device)
-    entry = getattr(_build.load(), f"vt_{name}")
-    code = entry(*lead, q.data_ptr(), None if qsq is None else qsq.data_ptr(), groups.data_ptr(),
-                 None if pairs is None else pairs.data_ptr(), out.data_ptr(), n, d, b * gsel,
-                 gsel, w, rows, rs, cols, int(direct), int(_is_l2(metric)),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, name)
+    _build.launch(name, x.device, *lead, q, qsq, groups, pairs, out, n, d, b * gsel, gsel, w,
+                  rows, rs, cols, int(direct), int(_is_l2(metric)))
     LAUNCHES[name] += 1
     ROUTES[name]["direct" if direct else "narrow"] += 1
     return out
@@ -350,8 +342,10 @@ def rescore(x, xsq, bias, q, gidx, *, metric):
     b, gsel = gidx.shape
     if b != q.shape[0]:
         raise ValueError(f"gidx has {b} rows for {q.shape[0]} queries")
-    if gidx.dtype != torch.int32 or gidx.device != x.device:
-        raise TypeError("gidx must be an int32 tensor on the operands' device")
+    if gidx.dtype != torch.int32:
+        raise TypeError("gidx must be an int32 tensor")
+    if gidx.device != x.device:
+        raise ValueError(f"operands on {gidx.device} and {x.device}")
     if x.device.type == "cpu":
         return _rescore_ref(x, xsq, bias, q, gidx.clamp(0, x.shape[0] // GROUP - 1),
                             metric=metric)
@@ -360,7 +354,7 @@ def rescore(x, xsq, bias, q, gidx, *, metric):
     for t in (x, xsq, bias):
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
-    lead = (x.data_ptr(), int(x.dtype == torch.bfloat16), xsq.data_ptr(), bias.data_ptr())
+    lead = (x, int(x.dtype == torch.bfloat16), xsq, bias)
     return _group_rescore("rescore", lead, x, q, gidx, metric=metric)
 
 
@@ -554,8 +548,10 @@ def int8_gmin_scan(x8, scale, xsq, bias, q8, qscale, qsq, *, metric):
     _check_int8_operands(x8, scale, xsq, bias, q8, torch.int8)
     b, d = q8.shape
     for name, t in (("qscale", qscale), ("qsq", qsq)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (b,) or t.device != x8.device:
-            raise TypeError(f"{name} must be float32 of shape {(b,)} on {x8.device}")
+        if t.dtype != torch.float32 or tuple(t.shape) != (b,):
+            raise TypeError(f"{name} must be float32 of shape {(b,)}")
+        if t.device != x8.device:
+            raise ValueError(f"operands on {t.device} and {x8.device}")
     bounded = _int8_bounded(scale, xsq, qscale, qsq, d)
     if x8.device.type == "cpu":
         return _int8_gmin_scan_ref(x8, scale, xsq, bias, q8, qscale, qsq,
@@ -568,12 +564,8 @@ def int8_gmin_scan(x8, scale, xsq, bias, q8, qscale, qsq, *, metric):
     xt, ldx, x_copied = _tma_rows(x8)
     qt, ldq, q_copied = _tma_rows(q8)
     gmin = torch.empty((b, n // GROUP), dtype=torch.float32, device=x8.device)
-    lib = _build.load()
-    code = lib.vt_int8_gmin_scan(xt.data_ptr(), ldx, scale.data_ptr(), xsq.data_ptr(),
-                                 bias.data_ptr(), qt.data_ptr(), ldq, qscale.data_ptr(),
-                                 qsq.data_ptr(), gmin.data_ptr(), n, d, b, int(_is_l2(metric)),
-                                 torch.cuda.current_stream(x8.device).cuda_stream)
-    _build.check(code, "int8_gmin_scan")
+    _build.launch("int8_gmin_scan", x8.device, xt, ldx, scale, xsq, bias, qt, ldq, qscale, qsq,
+                  gmin, n, d, b, int(_is_l2(metric)))
     _count_route("int8_gmin_scan", x_copied, q_copied)
     return gmin, bounded
 
@@ -598,8 +590,10 @@ def int8_rescore(x8, scale, xsq, bias, q, gidx, *, metric):
     b, gsel = gidx.shape
     if b != q.shape[0]:
         raise ValueError(f"gidx has {b} rows for {q.shape[0]} queries")
-    if gidx.dtype != torch.int32 or gidx.device != x8.device:
-        raise TypeError("gidx must be an int32 tensor on the operands' device")
+    if gidx.dtype != torch.int32:
+        raise TypeError("gidx must be an int32 tensor")
+    if gidx.device != x8.device:
+        raise ValueError(f"operands on {gidx.device} and {x8.device}")
     if x8.device.type == "cpu":
         return _int8_rescore_ref(x8, scale, xsq, bias, q,
                                  gidx.clamp(0, x8.shape[0] // GROUP - 1), metric=metric)
@@ -607,7 +601,7 @@ def int8_rescore(x8, scale, xsq, bias, q, gidx, *, metric):
         raise ValueError(f"int8_rescore runs on cuda or cpu tensors, not {x8.device}")
     if not all(t.is_contiguous() for t in (x8, scale, xsq, bias)):
         raise ValueError("kernel operands must be contiguous")
-    lead = (x8.data_ptr(), scale.data_ptr(), xsq.data_ptr(), bias.data_ptr())
+    lead = (x8, scale, xsq, bias)
     return _group_rescore("int8_rescore", lead, x8, q, gidx, metric=metric)
 
 
@@ -731,14 +725,9 @@ def stage_gmin_scan(x, xsq, bias, q, *, metric, dims):
     qts = [_tma_rows(t) for t in parts]
     gmin = torch.empty((b, n // GROUP), dtype=torch.float32, device=x.device)
     rank = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    lib = _build.load()
-    code = lib.vt_stage_gmin_scan(xt.data_ptr(), ldx, int(x.dtype == torch.bfloat16),
-                                  xsq.data_ptr(), bias.data_ptr(), qts[0][0].data_ptr(),
-                                  qts[-1][0].data_ptr(), qts[0][1], qsq.data_ptr(),
-                                  gmin.data_ptr(), rank.data_ptr(), n, dims, b,
-                                  FUSED_METRICS.index(metric),
-                                  torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, "stage_gmin_scan")
+    _build.launch("stage_gmin_scan", x.device, xt, ldx, int(x.dtype == torch.bfloat16), xsq,
+                  bias, qts[0][0], qts[-1][0], qts[0][1], qsq, gmin, rank, n, dims, b,
+                  FUSED_METRICS.index(metric))
     _count_route("stage_gmin_scan", x_copied, *(copied for _t, _ld, copied in qts))
     return gmin, rank, bounded
 
@@ -844,11 +833,7 @@ def fused_sign_scan(signs, valid8, qsigns, *, d):
     qt, ldq, q_copied = _tma_rows(qsigns)
     gmin = torch.empty((b, n // GROUP), dtype=torch.int32, device=signs.device)
     ham16 = torch.empty((b, n), dtype=torch.int16, device=signs.device)
-    lib = _build.load()
-    code = lib.vt_sign_scan(st.data_ptr(), lds, valid8.data_ptr(), qt.data_ptr(), ldq,
-                            gmin.data_ptr(), ham16.data_ptr(), n, d, b,
-                            torch.cuda.current_stream(signs.device).cuda_stream)
-    _build.check(code, "sign_scan")
+    _build.launch("sign_scan", signs.device, st, lds, valid8, qt, ldq, gmin, ham16, n, d, b)
     _count_route("sign_scan", s_copied, q_copied)
     return gmin, ham16
 
@@ -878,16 +863,15 @@ def extract_group_rows(mat, gidx):
 
     On an H100 the kernel takes ~0.003 ms at B = 1-16 and 0.02-0.03 ms at
     B = 512, so this wrapper's host work is most of a call: it checks each
-    operand once, with the cheap accessors (``get_device``, not
-    ``torch.device`` objects), and reads the raw stream of the tensor's
-    device directly."""
+    operand once."""
     if mat.dim() != 3 or gidx.dim() != 2 or gidx.shape[0] != mat.shape[0]:
         raise ValueError(f"mat {tuple(mat.shape)} and gidx {tuple(gidx.shape)} do not pair")
     if mat.dtype not in (torch.float32, torch.int16):
         raise TypeError(f"mat must be float32 or int16, got {mat.dtype}")
-    dev = mat.get_device()
-    if gidx.dtype != torch.int32 or gidx.get_device() != dev:
-        raise TypeError("gidx must be an int32 tensor on mat's device")
+    if gidx.dtype != torch.int32:
+        raise TypeError("gidx must be an int32 tensor")
+    if gidx.device != mat.device:
+        raise ValueError(f"operands on {gidx.device} and {mat.device}")
     if not mat.is_cuda:
         if mat.device.type == "cpu":
             return _extract_group_rows_ref(mat, gidx)
@@ -900,10 +884,6 @@ def extract_group_rows(mat, gidx):
     gidx = gidx.contiguous()
     c = gidx.shape[1]
     out = torch.empty((b, c, lanes), dtype=mat.dtype, device=mat.device)
-    lib = _build.load()
-    code = lib.vt_extract_group_rows(mat.data_ptr(), gidx.data_ptr(), out.data_ptr(),
-                                     b, rows, c, row_bytes,
-                                     torch._C._cuda_getCurrentRawStream(dev))
-    _build.check(code, "extract_group_rows")
+    _build.launch("extract_group_rows", mat.device, mat, gidx, out, b, rows, c, row_bytes)
     LAUNCHES["extract_group_rows"] += 1
     return out

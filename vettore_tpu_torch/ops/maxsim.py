@@ -533,13 +533,9 @@ def maxsim_rank_scan(tokens, counts, dbias, qt, qinv, *, b, metric, tinv=None):
     qts = [_tma_rows(part) for part in parts]
     qn = query_tile(b * nq, bf16)
     out = torch.empty((max(1, nq // qn), b, n), dtype=torch.float32, device=tokens.device)
-    lib = _build.load()
-    code = lib.vt_maxsim_rank_scan(
-        xt.data_ptr(), ldx, int(bf16), counts.data_ptr(), dbias.data_ptr(),
-        tinv.data_ptr() if cosine else None, qts[0][0].data_ptr(), qts[-1][0].data_ptr(),
-        qts[0][1], qinv.data_ptr(), out.data_ptr(), n, tk, d, b, nq, qn, int(cosine),
-        torch.cuda.current_stream(tokens.device).cuda_stream)
-    _build.check(code, "maxsim_rank_scan")
+    _build.launch("maxsim_rank_scan", tokens.device, xt, ldx, int(bf16), counts, dbias,
+                  tinv if cosine else None, qts[0][0], qts[-1][0], qts[0][1], qinv, out, n, tk,
+                  d, b, nq, qn, int(cosine))
     LAUNCHES["maxsim_rank_scan"] += 1
     copied = copied or x_copied or any(c for _t, _ld, c in qts)
     ROUTES["maxsim_rank_scan"]["padded" if copied else "direct"] += 1

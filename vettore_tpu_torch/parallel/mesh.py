@@ -17,7 +17,9 @@ global slot, raw) are gathered onto the data row's first device and merged
 with a stable two-key sort, so the reference's (rank, id) tie-break survives
 end to end. A device may appear in the grid more than once: its shards are
 then virtual (several shards, one card), and a gather between them is no
-copy. Across cards a gather is a peer copy.
+copy. Across cards a gather is a peer copy. ``sharded_search`` searches
+blocks already placed on the mesh, as JAX's does; ``ShardedFlat`` builds
+and keeps such blocks for a collection.
 """
 
 from __future__ import annotations
@@ -47,12 +49,14 @@ def _device(d) -> torch.device:
 class Mesh:
     """A ``[data, shard]`` grid of torch devices with the axis sizes in
     ``shape`` (``jax.sharding.Mesh``'s ``shape``). ``gathered_bytes`` counts
-    the bytes the merges gathered (``parallel/cost.py``)."""
+    the bytes the merges gathered (``parallel/cost.py``), ``reruns`` the
+    shard batches ``sharded_search`` reran on the plain scan."""
 
     def __init__(self, grid):
         self.devices = tuple(tuple(_device(d) for d in row) for row in grid)
         self.shape = {"data": len(self.devices), "shard": len(self.devices[0])}
         self.gathered_bytes = 0
+        self.reruns = 0
 
     @property
     def first(self) -> torch.device:
@@ -124,7 +128,8 @@ def _to(piece, dev):
 
 def make_mesh(devices=None, *, data: int = 1) -> Mesh:
     """Builds a ``(data, shard)`` mesh over the given devices, or over every
-    CUDA device when none are given. A device may repeat
+    CUDA device (``cuda:0`` .. ``cuda:{n-1}``) when none are given. A device
+    may repeat
     (``[torch.device("cuda", 0)] * 4``: four virtual shards on one card);
     the CPU tests pass ``["cpu"] * n``."""
     if devices is None:
@@ -225,6 +230,64 @@ def _merge_hits(mesh, per_shard, device, k):
     return torch.where(torch.isfinite(rm), sm, -1), wm
 
 
+def _row_sq(x):
+    """Squared norms of the rows of ``x`` in f32, in one pass over it (no
+    temporary of ``x``'s size: a shard may fill most of its card)."""
+    return torch.linalg.vector_norm(x, dim=1, dtype=torch.float32).square()
+
+
+def _bias(valid):
+    """0 on valid rows, +inf on the rest: the fused scan's row bias."""
+    return torch.where(valid, 0.0, float("inf")).float()
+
+
+def _search_shards(mesh, x, valid, lex, queries, *, metric, k, stride, xsq=None, bias=None):
+    """The sharded exact search that ``sharded_search`` and
+    ``ShardedFlat.search_device`` share, over ``Blocks`` ``x`` (f32 or bf16
+    rows), ``valid`` (bool) and ``lex`` (int32 lex ranks). Each shard runs
+    the fused search (K1 + K2) when its rows allow it, else the plain scan
+    (JAX's ``_local_topk``, in the lex permutation's tie order); a fused
+    shard batch that is not ``ok`` (a tie spill past the slack, or a batch
+    that fails the overflow bound) reruns on the plain scan. ``xsq`` and
+    ``bias`` are derived from the blocks unless given. Shard ``s``'s local
+    row ``i`` is global slot ``s * stride + i``. Returns ``(slots [B, k]
+    int32, -1 where the rank is not finite; raws [B, k])`` on the mesh's
+    first device, and the number of reruns."""
+    fused = x.rows >= flat_index.FUSED_ROWS_MIN and flat_scan.supports(metric, x.rows, k)
+    if fused:
+        xsq = xsq if xsq is not None else x.map(_row_sq)
+        bias = bias if bias is not None else valid.map(_bias)
+
+    def plain(s, r, q):
+        order = torch.argsort(lex.shard(s, r), stable=True)
+        return _local_topk(x.shard(s, r), valid.shard(s, r), order, q, metric=metric, k=k)
+
+    reruns = 0
+    per_row = []
+    for r, qs in enumerate(row_queries(mesh, queries)):
+        outs = []
+        for s, dev in enumerate(mesh.devices[r]):
+            if fused:
+                outs.append(flat_scan.fused_flat_search(
+                    x.shard(s, r), xsq.shard(s, r), bias.shard(s, r), lex.shard(s, r), qs[dev],
+                    metric=metric, k=k))
+            else:
+                outs.append(plain(s, r, qs[dev]))
+        per_shard = []
+        for s, dev in enumerate(mesh.devices[r]):
+            slots, raws, ranks = outs[s][:3]
+            if fused and not bool(outs[s][3]):
+                # tie spill or overflow bound: this shard's exact plain scan
+                reruns += 1
+                slots, raws, ranks = plain(s, r, qs[dev])
+            # int32 lex and slot planes, as JAX's (parallel/cost.py)
+            lx = lex.shard(s, r)[slots]
+            per_shard.append((ranks, lx.where(torch.isfinite(ranks), _BIG32),
+                              (slots + s * stride).int(), raws))
+        per_row.append(_merge_hits(mesh, per_shard, mesh.devices[r][0], k))
+    return (*to_first(mesh, per_row), reruns)
+
+
 class ShardedFlat:
     """A flat exact index sharded across a mesh.
 
@@ -274,13 +337,10 @@ class ShardedFlat:
         xf = xt.float()
         xsq = (xf * xf).sum(dim=2)  # of the stored values
         del xf
-        #: per-shard search state: rows, squared norms, lex ranks, the lex
-        #: permutation (the plain scan's tie order)
+        #: per-shard search state: rows, squared norms, lex ranks
         self._x = mesh.place(list(xt))
         self._xsq = mesh.place(list(xsq))
         self._lex = mesh.place(list(torch.from_numpy(lex)))
-        self._lex_order = mesh.place(
-            [torch.from_numpy(np.argsort(lex[s], kind="stable")) for s in range(shards)])
         self._set_valid()
         #: shard batches rerun on the plain scan (fused search not ok)
         self.reruns = 0
@@ -288,8 +348,7 @@ class ShardedFlat:
     def _set_valid(self) -> None:
         valid = [torch.from_numpy(v.copy()) for v in self._valid_host]
         self._valid = self.mesh.place(valid)
-        self._bias = self.mesh.place(
-            [torch.where(v, 0.0, float("inf")).float() for v in valid])
+        self._bias = self.mesh.place([_bias(v) for v in valid])
 
     def invalidate_ids(self, ids) -> None:
         """Masks rows out of the search (delete without resharding: the
@@ -303,44 +362,15 @@ class ShardedFlat:
         if changed:
             self._set_valid()
 
-    def _fused(self, k: int) -> bool:
-        return (self._x.rows >= flat_index.FUSED_ROWS_MIN
-                and flat_scan.supports(self.metric, self._x.rows, k))
-
     def search_device(self, queries, k: int):
         """Device search of a prepared ``[B, d]`` f32 batch (``B`` a
         multiple of ``data``): ``(slots [B, k] global rows, -1 where fewer
         hits; raws [B, k])`` on the mesh's first device."""
-        mesh = self.mesh
-        fused = self._fused(k)
-        per_row = []
-        for r, qs in enumerate(row_queries(mesh, queries)):
-            outs = []
-            for s, dev in enumerate(mesh.devices[r]):
-                x, lex = self._x.shard(s, r), self._lex.shard(s, r)
-                if fused:
-                    outs.append(flat_scan.fused_flat_search(
-                        x, self._xsq.shard(s, r), self._bias.shard(s, r), lex, qs[dev],
-                        metric=self.metric, k=k))
-                else:
-                    outs.append(_local_topk(x, self._valid.shard(s, r),
-                                            self._lex_order.shard(s, r), qs[dev],
-                                            metric=self.metric, k=k))
-            per_shard = []
-            for s, dev in enumerate(mesh.devices[r]):
-                slots, raws, ranks = outs[s][:3]
-                if fused and not bool(outs[s][3]):
-                    # tie spill or overflow bound: this shard's exact plain scan
-                    self.reruns += 1
-                    slots, raws, ranks = _local_topk(
-                        self._x.shard(s, r), self._valid.shard(s, r),
-                        self._lex_order.shard(s, r), qs[dev], metric=self.metric, k=k)
-                # int32 lex and slot planes, as JAX's (parallel/cost.py)
-                lex = self._lex.shard(s, r)[slots]
-                per_shard.append((ranks, lex.where(torch.isfinite(ranks), _BIG32),
-                                  (slots + s * self.per).int(), raws))
-            per_row.append(_merge_hits(mesh, per_shard, mesh.devices[r][0], k))
-        return to_first(mesh, per_row)
+        slots, raws, reruns = _search_shards(
+            self.mesh, self._x, self._valid, self._lex, queries, metric=self.metric, k=k,
+            stride=self.per, xsq=self._xsq, bias=self._bias)
+        self.reruns += reruns
+        return slots, raws
 
     def search_batch(self, queries, limit: int) -> list:
         """Returns ``[(id, raw)]`` per query, merged across shards."""
@@ -357,11 +387,25 @@ class ShardedFlat:
         return out
 
 
-def sharded_search(mesh: Mesh, index: ShardedFlat, queries, *, k: int):
-    """Sharded exact search of a device query batch over a
-    :class:`ShardedFlat` (JAX's ``sharded_search`` takes the blocks
-    themselves): ``(slots [B, k] global rows, raws [B, k])``, slot -1 where
-    fewer hits, on the mesh's first device."""
-    if index.mesh is not mesh:
-        raise ValueError("the index lives on another mesh")
-    return index.search_device(queries, k)
+def sharded_search(mesh: Mesh, x, valid, lex_rank, queries, *, metric: str, k: int):
+    """Sharded exact search over a row-sharded block (JAX's signature).
+
+    ``x`` (``[rows, d]`` per shard, f32 or bf16), ``valid`` (``[rows]``
+    bool) and ``lex_rank`` (``[rows]`` int32 global id-order rank per row,
+    ``2**31 - 1`` for pads) are ``Blocks`` placed on ``mesh``
+    (``mesh.place`` / ``mesh.shard_rows``); ``queries`` is ``[B, d]``, ``B``
+    a multiple of ``data``. Returns ``(slots [B, k] int32 global row
+    indices, raws [B, k])`` on ``mesh.first``: global slot = shard * rows
+    per shard + local row, merged by (rank, lex rank), slot -1 where the
+    rank is not finite. Each shard searches on its own device (the fused
+    K1 + K2 search where its rows allow it); ``mesh.reruns`` counts the
+    shard batches that reran on the plain scan."""
+    for name, block in (("x", x), ("valid", valid), ("lex_rank", lex_rank)):
+        if not isinstance(block, Blocks) or block.mesh is not mesh:
+            raise ValueError(f"{name} is not a block placed on this mesh (placed on another "
+                             f"mesh, or not placed)")
+    queries = torch.as_tensor(queries, dtype=torch.float32)
+    slots, raws, reruns = _search_shards(mesh, x, valid, lex_rank, queries, metric=metric, k=k,
+                                         stride=x.rows)
+    mesh.reruns += reruns
+    return slots, raws
