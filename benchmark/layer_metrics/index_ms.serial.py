@@ -1,0 +1,7 @@
+"""ms per index search call (it ends in its copy to the host)."""
+
+from benchmark.layer_metrics._read import span_ms
+
+
+def read(run):
+    return span_ms(run, "index.search")
