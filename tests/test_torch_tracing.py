@@ -1,0 +1,356 @@
+"""The port's spans and counters (``vettore_tpu_torch/observability.py``) on
+the CPU.
+
+With no profiler recording, a search records nothing and builds no span,
+``record_function`` or ``_RecordFunctionFast`` object, and answers as it
+does under a profiler. Under ``torch.profiler.profile``: a flat collection's
+``search_batch`` records its root, the Collection's validate / normalize /
+hydrate spans, the index's span and its three device reads; each self time
+lies between 0 and its total, and a parent's self time is its total less
+its children's; the spans are CPU events of the profiler's trace (not user
+annotations) inside the caller's ``record_function``, and ranges of
+``trace()``'s Chrome trace. The HNSW beam counts its steps (at most
+``step_bound``) and the nodes it scored; ``sharded_search`` on a CPU mesh
+records one ``mesh.launch`` and one ``mesh.wait`` per shard a call. A new
+profiling session starts an empty registry; every recorded name is
+declared; ``Collection.stats()`` keeps its meaning with and without a
+profiler; threads' spans add up.
+"""
+
+import glob
+import json
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+import vettore_tpu_torch as vt
+from vettore_tpu_torch import errors as terr
+from vettore_tpu_torch import observability as obs
+from vettore_tpu_torch.index import hnsw_device
+from vettore_tpu_torch.parallel import make_mesh, sharded_search
+
+torch.set_num_threads(2)
+
+D = 16
+
+
+def _profiler():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _vectors(n, seed=0, d=D):
+    return np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def flat():
+    col = vt.Collection(name="flat", dimensions=D, index="flat", metric="cosine", device="cpu")
+    x = _vectors(300)
+    col.put_matrix([f"r{i:03d}" for i in range(300)], x)
+    return col, x
+
+
+@pytest.fixture(scope="module")
+def hnsw():
+    # past 2,048 nodes a host-inserted graph searches on the batched beam
+    n = 2100
+    col = vt.Collection(name="hnsw", dimensions=D, index="hnsw", metric="cosine", device="cpu")
+    x = _vectors(n, seed=1)
+    col.put_matrix([f"h{i:04d}" for i in range(n)], x)
+    assert col.index._use_device()
+    return col, x
+
+
+def _cpu_blocks(shards, rows=1024):
+    mesh = make_mesh(["cpu"] * shards)
+    x = _vectors(shards * rows, seed=2)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    blocks = (mesh.shard_rows(x), mesh.shard_rows(np.ones(len(x), dtype=bool)),
+              mesh.shard_rows(np.arange(len(x), dtype=np.int32)))
+    return mesh, blocks, x
+
+
+def _hits(answers):
+    return [[(r.id, r.score) for r in row] for row in answers]
+
+
+def test_no_profiler_records_nothing_and_answers_the_same(flat):
+    col, x = flat
+    obs.reset()
+    plain = col.search_batch(x[:8], limit=5)
+    assert obs.snapshot() == {"spans": {}, "counters": {}}
+    assert not obs.tracing()
+    with _profiler():
+        assert obs.tracing()
+        traced = col.search_batch(x[:8], limit=5)
+    assert _hits(plain) == _hits(traced)
+
+
+def test_no_span_or_profiler_range_is_built_without_a_profiler(flat, hnsw, monkeypatch):
+    made = []
+
+    fast = obs._RecordFunctionFast
+
+    def counted_fast(*args, **kwargs):
+        made.append("fast")
+        return fast(*args, **kwargs)
+
+    class CountedSpan(obs._Span):
+        __slots__ = ()
+
+        def __init__(self, name):
+            made.append(name)
+            super().__init__(name)
+
+    def counted_record_function(*args, **kwargs):
+        made.append("record_function")
+        return record_function(*args, **kwargs)
+
+    monkeypatch.setattr(obs, "_RecordFunctionFast", counted_fast)
+    monkeypatch.setattr(obs, "_Span", CountedSpan)
+    monkeypatch.setattr(torch.profiler, "record_function", counted_record_function)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", counted_record_function)
+    mesh, blocks, xm = _cpu_blocks(2)
+
+    def searches():
+        flat[0].search_batch(flat[1][:4], limit=3)
+        flat[0].search(flat[1][0], limit=3)
+        hnsw[0].search_batch(hnsw[1][:4], limit=3)
+        sharded_search(mesh, *blocks, xm[:4], metric="cosine", k=3)
+
+    obs.reset()
+    searches()
+    assert made == [] and obs.snapshot() == {"spans": {}, "counters": {}}
+    with _profiler():
+        searches()
+    assert "fast" in made and "record_function" not in made
+
+
+def test_flat_search_batch_spans(flat):
+    col, x = flat
+    with _profiler():
+        col.search_batch(x[:8], limit=5)
+    spans = obs.snapshot()["spans"]
+    for name in ("collection.search_batch", "index.search_batch", "index.validate",
+                 "index.assemble", "collection.validate", "collection.normalize",
+                 "collection.hydrate"):
+        assert spans[name]["count"] == 1, name
+    # slots, raws and the ok flags: the index's three host reads
+    assert spans["index.wait"]["count"] == 3
+    for name, s in spans.items():
+        assert 0 <= s["self_s"] <= s["total_s"], name
+    root = spans["collection.search_batch"]
+    children = sum(spans[n]["total_s"] for n in ("collection.validate", "collection.normalize",
+                                                 "index.search_batch", "collection.hydrate"))
+    assert root["self_s"] == pytest.approx(root["total_s"] - children, abs=1e-9)
+    index = spans["index.search_batch"]
+    inner = sum(spans[n]["total_s"] for n in ("index.validate", "index.wait", "index.assemble"))
+    assert index["self_s"] == pytest.approx(index["total_s"] - inner, abs=1e-9)
+
+
+def test_serial_search_spans(flat):
+    col, x = flat
+    with _profiler():
+        for q in x[:3]:
+            col.search(q, limit=4)
+    spans = obs.snapshot()["spans"]
+    for name in ("collection.search", "index.search", "index.validate", "index.assemble",
+                 "collection.validate", "collection.normalize", "collection.hydrate"):
+        assert spans[name]["count"] == 3, name
+    assert spans["index.wait"]["count"] == 9
+    assert "collection.search_batch" not in spans
+
+
+def test_spans_are_cpu_events_inside_the_callers_range(flat):
+    col, x = flat
+    with _profiler() as prof:
+        with record_function("caller"):
+            col.search_batch(x[:4], limit=3)
+    mine = [e for e in prof.events() if e.name in obs.SPANS]
+    assert {e.name for e in mine} >= {"collection.search_batch", "index.wait", "index.search_batch"}
+    for e in mine:
+        assert e.device_type == torch.autograd.DeviceType.CPU
+        assert not e.is_user_annotation, e.name
+        parent = e.cpu_parent
+        while parent is not None and parent.name != "caller":
+            parent = parent.cpu_parent
+        assert parent is not None, e.name
+    caller = [e for e in prof.events() if e.name == "caller"]
+    assert len(caller) == 1 and caller[0].is_user_annotation
+
+
+def test_trace_writes_the_spans_into_its_chrome_trace(flat, tmp_path):
+    col, x = flat
+    with obs.trace(str(tmp_path)):
+        col.search_batch(x[:4], limit=3)
+    (path,) = glob.glob(str(tmp_path / "*.json"))
+    events = json.loads(open(path).read())["traceEvents"]
+    names = [e["name"] for e in events if e.get("ph") == "X" and e.get("name") in obs.SPANS]
+    assert names.count("index.wait") == 3 and names.count("collection.search_batch") == 1
+    assert obs.snapshot()["spans"]["collection.search_batch"]["count"] == 1
+
+
+def test_hnsw_counts_steps_and_nodes(hnsw):
+    col, x = hnsw
+    index = col.index
+    with _profiler():
+        col.search_batch(x[:8] + 0.01, limit=5)
+    snap = obs.snapshot()
+    ef = min(max(index.params["ef_search"], 5), len(x))
+    w = index.params.get("expand_w") or hnsw_device.EXPAND_W
+    steps = snap["counters"]["hnsw.steps"]
+    assert 0 < steps <= hnsw_device.step_bound(ef, w)
+    # each step scores at most W * m0 fresh neighbours a query
+    assert 0 < snap["counters"]["hnsw.nodes"] <= 8 * steps * min(w, ef) * index.params["m0"]
+    spans = snap["spans"]
+    assert spans["index.search_batch"]["count"] == 1 and spans["index.assemble"]["count"] == 1
+    # the convergence reads every _DONE_EVERY steps, then slots and raws
+    reads = spans["index.wait"]["count"]
+    assert 2 < reads <= 2 + steps // hnsw_device._DONE_EVERY + 1
+
+
+def test_hnsw_nodes_are_counted_only_while_tracing(hnsw, monkeypatch):
+    col, x = hnsw
+    calls = []
+    monkeypatch.setattr(hnsw_device, "count", lambda *a: calls.append(a))
+    col.search_batch(x[:4], limit=5)
+    assert [name for name, _n in calls] == ["hnsw.steps"]
+    calls.clear()
+    with _profiler():
+        col.search_batch(x[:4], limit=5)
+    assert [name for name, _n in calls] == ["hnsw.steps", "hnsw.nodes"]
+    assert isinstance(calls[1][1], torch.Tensor)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_search_launch_per_shard(shards):
+    mesh, blocks, x = _cpu_blocks(shards)
+    calls = 3
+    with _profiler():
+        for c in range(calls):
+            sharded_search(mesh, *blocks, x[4 * c:4 * c + 4], metric="cosine", k=5)
+    spans = obs.snapshot()["spans"]
+    assert spans["mesh.search"]["count"] == calls
+    assert spans["mesh.launch"]["count"] == shards * calls
+    # shards of 1,024 rows run the fused search, whose ok flag the host reads
+    assert spans["mesh.wait"]["count"] == shards * calls
+    root = spans["mesh.search"]
+    assert root["self_s"] == pytest.approx(
+        root["total_s"] - spans["mesh.launch"]["total_s"] - spans["mesh.wait"]["total_s"],
+        abs=1e-9)
+
+
+def test_a_new_session_starts_empty(flat):
+    col, x = flat
+    with _profiler():
+        col.search_batch(x[:4], limit=3)
+        col.search_batch(x[4:8], limit=3)
+    assert obs.snapshot()["spans"]["collection.search_batch"]["count"] == 2
+    col.search_batch(x[:4], limit=3)
+    col.search(x[0], limit=3)
+    with _profiler():
+        col.search_batch(x[:4], limit=3)
+    spans = obs.snapshot()["spans"]
+    assert spans["collection.search_batch"]["count"] == 1
+    assert spans["index.wait"]["count"] == 3 and "collection.search" not in spans
+
+
+def test_every_recorded_name_is_declared(flat, hnsw):
+    mesh, blocks, xm = _cpu_blocks(2)
+    with _profiler():
+        flat[0].search_batch(flat[1][:4], limit=3)
+        flat[0].search(flat[1][0], limit=3)
+        hnsw[0].search(hnsw[1][0], limit=3)
+        hnsw[0].search_batch(hnsw[1][:4], limit=3)
+        sharded_search(mesh, *blocks, xm[:4], metric="cosine", k=3)
+    snap = obs.snapshot()
+    assert set(snap["spans"]) <= set(obs.SPANS)
+    assert set(snap["counters"]) == set(obs.COUNTERS)
+    assert len(set(obs.SPANS)) == len(obs.SPANS)
+
+
+def test_undeclared_names_are_refused():
+    with pytest.raises(KeyError):
+        obs.span("index.nothing")
+    with pytest.raises(KeyError):
+        obs.observed("nothing")
+    obs.count("hnsw.nothing")  # no profiler: the flag test alone
+    with _profiler():
+        with pytest.raises(KeyError):
+            obs.span("index.nothing")
+        with pytest.raises(KeyError):
+            obs.count("hnsw.nothing")
+
+
+def test_span_as_decorator_and_counter():
+    @obs.span("index.assemble")
+    def work(n):
+        obs.count("hnsw.steps", n)
+        obs.count("hnsw.nodes", torch.tensor(n))
+        return n
+
+    assert work(2) == 2
+    with _profiler():
+        assert work(3) == 3 and work(4) == 4
+    snap = obs.snapshot()
+    assert snap["spans"]["index.assemble"]["count"] == 2
+    assert snap["counters"] == {"hnsw.steps": 7, "hnsw.nodes": 7}
+    assert obs.snapshot()["counters"] == {"hnsw.steps": 7, "hnsw.nodes": 7}
+
+
+def test_collection_stats_keep_their_meaning(flat):
+    col, x = flat
+    before = col.stats().get("search_batch", {"count": 0, "errors": 0})
+    col.search_batch(x[:2], limit=3)
+    with _profiler():
+        col.search_batch(x[:2], limit=3)
+        with pytest.raises(terr.DimensionMismatch):
+            col.search_batch(x[:2, :4], limit=3)
+    after = col.stats()["search_batch"]
+    assert after["count"] == before["count"] + 3
+    assert after["errors"] == before["errors"] + 1
+    spans = obs.snapshot()["spans"]
+    # the failed call closes its root span too
+    assert spans["collection.search_batch"]["count"] == 2
+    assert spans["collection.validate"]["count"] == 2
+
+
+def test_threads_spans_add_up():
+    threads, each = 16, 50
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    barrier = threading.Barrier(threads, timeout=60)
+
+    def work(_):
+        barrier.wait()
+        for _ in range(each):
+            with obs.span("mesh.launch"):
+                with obs.span("mesh.wait"):
+                    obs.count("hnsw.steps")
+        return True
+
+    try:
+        with _profiler():
+            with ThreadPoolExecutor(threads) as pool:
+                done = list(pool.map(work, range(threads), timeout=120))
+    finally:
+        sys.setswitchinterval(old)
+    assert done == [True] * threads
+    snap = obs.snapshot()
+    assert snap["spans"]["mesh.launch"]["count"] == threads * each
+    assert snap["spans"]["mesh.wait"]["count"] == threads * each
+    assert snap["counters"]["hnsw.steps"] == threads * each
+    launch, wait = snap["spans"]["mesh.launch"], snap["spans"]["mesh.wait"]
+    assert launch["self_s"] == pytest.approx(launch["total_s"] - wait["total_s"], abs=1e-6)
+
+
+def test_documentation_example_runs():
+    import doctest
+
+    result = doctest.testmod(obs, optionflags=doctest.ELLIPSIS)
+    assert result.failed == 0 and result.attempted > 0

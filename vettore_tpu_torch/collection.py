@@ -57,7 +57,7 @@ from .metrics import (
     normalize_metric,
     result_values,
 )
-from .observability import StatsRegistry, observed
+from .observability import StatsRegistry, observed, span
 from .ops import flat_scan, scan_host
 from .ops import maxsim as maxsim_ops
 from .ops import muvera_fde
@@ -1039,8 +1039,11 @@ class Collection:
 
     def prepare_query(self, query) -> np.ndarray:
         self.ensure_open()
-        self._validate_dims(query)
-        return normalize_rows(np.asarray(query, np.float64)[None, :], self.normalize)[0]
+        with span("collection.validate"):
+            self._validate_dims(query)
+            q = np.asarray(query, np.float64)[None, :]
+        with span("collection.normalize"):
+            return normalize_rows(q, self.normalize)[0]
 
     def _to_result(self, embedding: Embedding, raw: float) -> Result:
         score, distance = result_values(self.metric, raw, self.score)
@@ -1075,7 +1078,8 @@ class Collection:
         _validate_limit(limit)
         q = self.prepare_query(query)
         hits = self._index.search(q, limit)
-        return self._hydrate_hits(hits)
+        with span("collection.hydrate"):
+            return self._hydrate_hits(hits)
 
     @observed("search_batch")
     def search_batch(self, queries, *, limit=10, **extra) -> list:
@@ -1088,7 +1092,8 @@ class Collection:
             all_hits = batch(prepared, limit)
         else:
             all_hits = [self._index.search(q, limit) for q in prepared]
-        return [self._hydrate_hits(hits) for hits in all_hits]
+        with span("collection.hydrate"):
+            return [self._hydrate_hits(hits) for hits in all_hits]
 
     # ------------------------------------------------------------------
     # adaptive modes: funnel and quantized (collection.ex:244-295,660-713)
@@ -1107,17 +1112,21 @@ class Collection:
         self.ensure_open()
         if not len(queries):
             return np.zeros((0, self.dimensions), np.float32)
-        try:
-            qs = np.asarray(queries, dtype=np.float64)
-        except (TypeError, ValueError) as exc:
-            raise E.InvalidVector("queries must be numeric") from exc
-        if qs.ndim != 2:
-            raise E.InvalidVector("queries must be a [batch, dims] matrix")
-        if qs.shape[1] != self.dimensions:
-            raise E.DimensionMismatch("dimension mismatch")
-        if qs.size and (not np.isfinite(qs).all() or (np.abs(qs) > F32_MAX).any()):
-            raise E.InvalidVector("vector contains a non-finite value")
-        return normalize_rows(qs, self.normalize) if qs.size else qs
+        with span("collection.validate"):
+            try:
+                qs = np.asarray(queries, dtype=np.float64)
+            except (TypeError, ValueError) as exc:
+                raise E.InvalidVector("queries must be numeric") from exc
+            if qs.ndim != 2:
+                raise E.InvalidVector("queries must be a [batch, dims] matrix")
+            if qs.shape[1] != self.dimensions:
+                raise E.DimensionMismatch("dimension mismatch")
+            if qs.size and (not np.isfinite(qs).all() or (np.abs(qs) > F32_MAX).any()):
+                raise E.InvalidVector("vector contains a non-finite value")
+        if not qs.size:
+            return qs
+        with span("collection.normalize"):
+            return normalize_rows(qs, self.normalize)
 
     def _query_tensor(self, prepared: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(prepared, dtype=np.float32)).to(self.device)

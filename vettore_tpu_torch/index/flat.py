@@ -29,6 +29,7 @@ from ..errors import (
     UnsupportedFlatMetric,
 )
 from ..metrics import F32_MAX, METRICS, normalize_metric, rank_value
+from ..observability import span
 from ..ops import flat_scan
 from ..ops.distance import batched_raw_scores, rank_from_raw, validate_vector
 from ..ops.topk import bucket_limit, topk_slots
@@ -101,6 +102,12 @@ def _to_f64_array(vector) -> np.ndarray:
     if arr.ndim != 1:
         raise InvalidVector("vector must be one-dimensional")
     return arr
+
+
+def _on_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` copied to the host: a wait for its device."""
+    with span("index.wait"):
+        return t.cpu().numpy()
 
 
 def _validate_row(vector, expected_dim):
@@ -406,36 +413,40 @@ class FlatIndex(Index):
     def _query_block(self, qs: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(qs, dtype=np.float32)).to(self.device)
 
+    @span("index.search")
     def search(self, query, limit: int) -> list:
         """Returns up to ``limit`` ``(id, raw)`` hits, best-first with
         deterministic (rank, id) tie-break."""
         if limit == 0:
             return []
-        q = _to_f64_array(query)
-        _validate_row(q, self._dim)
+        with span("index.validate"):
+            q = _to_f64_array(query)
+            _validate_row(q, self._dim)
         if not self._slot_of:
             return []
         return self._search_rows(q[None, :], limit)[0]
 
+    @span("index.search_batch")
     def search_batch(self, queries, limit: int) -> list:
         """Scores a whole query batch in one device dispatch; returns one
         ``[(id, raw)]`` hit list per query."""
         if limit == 0:
             return [[] for _ in range(len(queries))]
-        try:
-            qs = np.asarray(queries, dtype=np.float64)
-        except (TypeError, ValueError) as exc:
-            raise InvalidVector("queries must be numeric") from exc
-        if qs.ndim != 2:
-            raise InvalidVector("queries must be a [batch, dims] matrix")
-        if qs.shape[0] == 0:
-            return []
-        if qs.shape[1] == 0:
-            raise InvalidVector("vector must not be empty")
-        if self._dim is not None and qs.shape[1] != self._dim:
-            raise DimensionMismatch("dimension mismatch")
-        if qs.size and (not np.isfinite(qs).all() or (np.abs(qs) > F32_MAX).any()):
-            raise InvalidVector("vector contains a non-finite value")
+        with span("index.validate"):
+            try:
+                qs = np.asarray(queries, dtype=np.float64)
+            except (TypeError, ValueError) as exc:
+                raise InvalidVector("queries must be numeric") from exc
+            if qs.ndim != 2:
+                raise InvalidVector("queries must be a [batch, dims] matrix")
+            if qs.shape[0] == 0:
+                return []
+            if qs.shape[1] == 0:
+                raise InvalidVector("vector must not be empty")
+            if self._dim is not None and qs.shape[1] != self._dim:
+                raise DimensionMismatch("dimension mismatch")
+            if qs.size and (not np.isfinite(qs).all() or (np.abs(qs) > F32_MAX).any()):
+                raise InvalidVector("vector contains a non-finite value")
         if not self._slot_of:
             return [[] for _ in range(qs.shape[0])]
         return self._search_rows(qs, limit)
@@ -444,16 +455,17 @@ class FlatIndex(Index):
         self._sync_device()
         k = bucket_limit(min(limit, len(self._slot_of)), self._cap)
         d_slots, d_raws, _ranks, d_ok = self._dispatch(self._query_block(qs), k)
-        slots, raws, ok = d_slots.cpu().numpy(), d_raws.cpu().numpy(), d_ok.cpu().numpy()
+        slots, raws, ok = _on_host(d_slots), _on_host(d_raws), _on_host(d_ok)
         n = min(limit, len(self._slot_of))
         results = []
-        for b in range(qs.shape[0]):
-            if not ok[b]:
-                results.append(self._host_search(qs[b], limit))
-            else:
-                results.append(
-                    [(self._ids[int(s)], float(r)) for s, r in zip(slots[b, :n], raws[b, :n])]
-                )
+        with span("index.assemble"):
+            for b in range(qs.shape[0]):
+                if not ok[b]:
+                    results.append(self._host_search(qs[b], limit))
+                else:
+                    results.append(
+                        [(self._ids[int(s)], float(r)) for s, r in zip(slots[b, :n], raws[b, :n])]
+                    )
         return results
 
     def search_batch_device(self, queries_device, limit: int):

@@ -45,6 +45,7 @@ from ..errors import (
     VettoreError,
 )
 from ..metrics import normalize_metric
+from ..observability import span
 from .base import Index
 from .flat import resolve_device
 
@@ -565,10 +566,12 @@ class HnswIndex(Index):
 
     # -- search -------------------------------------------------------------
 
+    @span("index.search")
     def search(self, query, limit: int) -> list:
         if limit == 0:
             return []
-        arr = self._validate(query)
+        with span("index.validate"):
+            arr = self._validate(query)
         if self._bulk is None and self._entry is None:
             return []
         if self._use_device():
@@ -577,12 +580,14 @@ class HnswIndex(Index):
             return hnsw_device.search(self, arr[None, :], limit)[0]
         return self._search_host(arr, limit)
 
+    @span("index.search_batch")
     def search_batch(self, queries, limit: int) -> list:
-        queries = np.asarray(queries, dtype=np.float64)
-        if limit == 0:
-            return [[] for _ in range(queries.shape[0])]
-        for q in queries:
-            self._validate(q)
+        with span("index.validate"):
+            queries = np.asarray(queries, dtype=np.float64)
+            if limit == 0:
+                return [[] for _ in range(queries.shape[0])]
+            for q in queries:
+                self._validate(q)
         if self._bulk is None and self._entry is None:
             return [[] for _ in range(queries.shape[0])]
         if self._use_device():

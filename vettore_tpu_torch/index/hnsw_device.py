@@ -47,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..observability import count, span, tracing
 from ..ops.distance import no_tf32
 from ..ops.topk import lex_sort, smallest
 
@@ -206,6 +207,18 @@ class DeviceGraph:
         return self.valid[torch.from_numpy(self._hub_slots().astype(np.int64)).to(self.x.device)]
 
 
+def _any_on_host(flags) -> bool:
+    """Whether any of ``flags`` holds: a host read (a wait for the device)."""
+    with span("index.wait"):
+        return bool(flags.any())
+
+
+def _on_host(t):
+    """``t`` copied to the host: a wait for its device."""
+    with span("index.wait"):
+        return t.cpu()
+
+
 def _set_bits(visited, slots, mask):
     """Adds the bits of ``slots`` [B, k] (int64, >= 0) where ``mask`` holds
     to ``visited`` [B, words] (elsewhere it adds 0). Exact only for
@@ -258,7 +271,7 @@ def search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, quer
         for layer in range(min(lmax, int(entry_level)), 0, -1):
             gd = _rank_rows(xt[g][:, None, :], qt, metric)[:, 0]
             moved = torch.ones(B, dtype=torch.bool, device=dev)
-            while bool(moved.any()):
+            while _any_on_host(moved):
                 u = up_index[g].long()
                 row = up_adj[u.clamp_min(0), layer - 1].long()
                 row = torch.where((u >= 0)[:, None], row, torch.full_like(row, -1))
@@ -289,13 +302,20 @@ def search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, quer
     a0x = torch.cat([a0, a0.new_full((1, m0), -1)])  # row n: no neighbours
     final_d, final_id = beam_d.clone(), beam_id.clone()
     live = torch.arange(B, device=dev)
+    # while a profiler records: the fresh neighbours scored, summed on the
+    # device (observability.snapshot reads the sum, not the search)
+    scored = torch.zeros((), dtype=torch.int64, device=dev) if tracing() else None
+    steps = 0
     for step in range(max_steps):
         top_d, jpos = smallest(beam_d.masked_fill(beam_exp | (beam_id < 0), inf), W)
         # reference termination: stop when the best unexpanded entry cannot
         # improve the result set (beam not full => worst = inf)
         best = top_d[:, 0]
         done = torch.isinf(best) | (best > beam_d[:, -1])
-        n_done = int(done.sum()) if step and step % _DONE_EVERY == 0 else 0  # a sync
+        n_done = 0
+        if step and step % _DONE_EVERY == 0:
+            with span("index.wait"):
+                n_done = int(done.sum())
         if n_done:
             # converged rows last, each group in batch order; index tensors,
             # not boolean masks, so that this check syncs once
@@ -322,6 +342,9 @@ def search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, quer
         visited.scatter_add_(1, word, fresh.long() << shift)
         rows = xt.index_select(0, safe.reshape(-1)).reshape(*safe.shape, -1)
         nd = _rank_rows(rows, qt, metric).masked_fill(~fresh, inf)
+        steps += 1
+        if scored is not None:
+            scored += fresh.sum()
         cat_d = torch.cat([beam_d, nd], dim=1)
         cat_id = torch.cat([beam_id, nbrs.masked_fill(~fresh, -1)], dim=1)
         cat_exp = torch.cat([beam_exp.scatter(1, jpos, beam_exp.gather(1, jpos) | expand_ok),
@@ -333,6 +356,9 @@ def search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, quer
         beam_exp = cat_exp.gather(1, order)
     final_d[live], final_id[live] = beam_d, beam_id
     beam_d, beam_id = final_d, final_id
+    count("hnsw.steps", steps)
+    if scored is not None:
+        count("hnsw.nodes", scored)
 
     # ---- exact epilogue: re-score every surviving beam entry from the f32
     # block and order by (f32 rank, lex id) — hnsw.rs:322-333's (dist,
@@ -405,8 +431,10 @@ def search(host, queries: np.ndarray, limit: int) -> list:
     """Batched device search over a host HNSW graph; returns per-query
     ``[(external_id, raw)]`` hit lists."""
     slots, raws = search_tensors(host, np.asarray(queries, dtype=np.float32), limit)
+    slots, raws = _on_host(slots), _on_host(raws)
     ids = host._device.ids
     out = []
-    for row_slots, row_raws in zip(slots.cpu().tolist(), raws.cpu().tolist()):
-        out.append([(ids[s], r) for s, r in zip(row_slots, row_raws) if s >= 0])
+    with span("index.assemble"):
+        for row_slots, row_raws in zip(slots.tolist(), raws.tolist()):
+            out.append([(ids[s], r) for s, r in zip(row_slots, row_raws) if s >= 0])
     return out

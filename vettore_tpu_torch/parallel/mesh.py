@@ -31,6 +31,7 @@ import torch
 
 from ..index import flat as flat_index
 from ..index.flat import _search_kernel, resolve_device
+from ..observability import span
 from ..ops import flat_scan
 from ..ops.topk import lex_sort
 
@@ -241,6 +242,13 @@ def _bias(valid):
     return torch.where(valid, 0.0, float("inf")).float()
 
 
+def _ok_on_host(flag) -> bool:
+    """A fused shard search's ok flag, read on the host (a wait for its
+    card)."""
+    with span("mesh.wait"):
+        return bool(flag)
+
+
 def _search_shards(mesh, x, valid, lex, queries, *, metric, k, stride, xsq=None, bias=None):
     """The sharded exact search that ``sharded_search`` and
     ``ShardedFlat.search_device`` share, over ``Blocks`` ``x`` (f32 or bf16
@@ -267,16 +275,17 @@ def _search_shards(mesh, x, valid, lex, queries, *, metric, k, stride, xsq=None,
     for r, qs in enumerate(row_queries(mesh, queries)):
         outs = []
         for s, dev in enumerate(mesh.devices[r]):
-            if fused:
-                outs.append(flat_scan.fused_flat_search(
-                    x.shard(s, r), xsq.shard(s, r), bias.shard(s, r), lex.shard(s, r), qs[dev],
-                    metric=metric, k=k))
-            else:
-                outs.append(plain(s, r, qs[dev]))
+            with span("mesh.launch"):
+                if fused:
+                    outs.append(flat_scan.fused_flat_search(
+                        x.shard(s, r), xsq.shard(s, r), bias.shard(s, r), lex.shard(s, r),
+                        qs[dev], metric=metric, k=k))
+                else:
+                    outs.append(plain(s, r, qs[dev]))
         per_shard = []
         for s, dev in enumerate(mesh.devices[r]):
             slots, raws, ranks = outs[s][:3]
-            if fused and not bool(outs[s][3]):
+            if fused and not _ok_on_host(outs[s][3]):
                 # tie spill or overflow bound: this shard's exact plain scan
                 reruns += 1
                 slots, raws, ranks = plain(s, r, qs[dev])
@@ -362,6 +371,7 @@ class ShardedFlat:
         if changed:
             self._set_valid()
 
+    @span("mesh.search")
     def search_device(self, queries, k: int):
         """Device search of a prepared ``[B, d]`` f32 batch (``B`` a
         multiple of ``data``): ``(slots [B, k] global rows, -1 where fewer
@@ -387,6 +397,7 @@ class ShardedFlat:
         return out
 
 
+@span("mesh.search")
 def sharded_search(mesh: Mesh, x, valid, lex_rank, queries, *, metric: str, k: int):
     """Sharded exact search over a row-sharded block (JAX's signature).
 
