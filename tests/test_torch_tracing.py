@@ -270,7 +270,9 @@ def test_every_recorded_name_is_declared(flat, hnsw):
         sharded_search(mesh, *blocks, xm[:4], metric="cosine", k=3)
     snap = obs.snapshot()
     assert set(snap["spans"]) <= set(obs.SPANS)
-    assert set(snap["counters"]) == set(obs.COUNTERS)
+    # the beam's captured graphs exist on CUDA devices only (the card tests
+    # count them)
+    assert set(snap["counters"]) == set(obs.COUNTERS) - {"hnsw.replays", "hnsw.captures"}
     assert len(set(obs.SPANS)) == len(obs.SPANS)
 
 

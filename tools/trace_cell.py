@@ -9,7 +9,9 @@ warm-up), then runs its loop for ``--seconds`` under
 into ``out``. From that trace: the union of device 0's kernels and copies,
 its idle gaps between the first and the last call, and each gap's seconds
 split by the innermost program span (``observability.SPANS``) open on the
-host at each instant, "no span" where none is. Prints one JSON line (also
+host at each instant, "no span" where none is; and a call's launches: the
+host's CUDA calls that enqueue work, by name, and the kernels the cards
+ran. Prints one JSON line (also
 written to ``out/idle_by_span.json``) with those seconds, the window, the
 calls, and ``observability.snapshot()``'s sums of the session. Needs the
 cell's number of CUDA cards.
@@ -29,6 +31,9 @@ sys.path.insert(0, str(ROOT))
 
 #: Chrome-trace categories of device work
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+#: Chrome-trace categories of the host's CUDA API calls
+API_CATS = ("cuda_runtime", "cuda_driver")
 
 
 def innermost(spans) -> list:
@@ -90,6 +95,21 @@ def idle_by_span(events, card: int = 0) -> dict:
             "host_threads": len(tids)}
 
 
+def launches(events, calls: int) -> dict:
+    """A call's means over the window: the host's CUDA calls that put work
+    on a card (kernel and graph launches, copies, memsets; by API name) and
+    the kernels the cards ran, graph replays' kernels included."""
+    host: dict = {}
+    for e in events:
+        if (e.get("ph") == "X" and e.get("cat") in API_CATS
+                and any(w in e["name"] for w in ("Launch", "Memcpy", "Memset"))):
+            host[e["name"]] = host.get(e["name"], 0) + 1
+    kernels = sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
+    per = max(calls, 1)
+    return {"host_calls": {k: v / per for k, v in sorted(host.items())},
+            "device_kernels": kernels / per}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
@@ -132,7 +152,7 @@ def main(argv=None) -> int:
     events = json.loads(Path(path).read_text())["traceEvents"]
     record = {"workload": cell.name, "seed": args.seed, "calls": calls, "failed": failed,
               "cards": harness.cards_line(cell.chips), **idle_by_span(events),
-              "snapshot": snap}
+              "launches": launches(events, calls), "snapshot": snap}
     line = json.dumps(record)
     (out / "idle_by_span.json").write_text(line + "\n")
     print(line, flush=True)

@@ -810,7 +810,7 @@ def _ensure_mutable(graph: BulkGraph, valid_np=None) -> _MutState:
     if graph.valid is not None or st.dead:
         graph.valid = torch.from_numpy(st.valid_np.copy()).to(dev)
     graph.levels = st.levels_np
-    graph._hubs = {}
+    graph.forget()
     graph._mut = st
     return st
 
@@ -927,7 +927,7 @@ def _tombstone(graph: BulkGraph, st: _MutState, ids: list) -> int:
         graph.valid = torch.from_numpy(st.valid_np.copy()).to(graph.x.device)
     else:
         graph.valid[torch.from_numpy(sl).to(graph.x.device)] = False
-    graph._hubs = {}
+    graph.forget()
     if not st.valid_np[graph.entry_slot]:
         _reelect_entry(graph, st)
     return len(slots)
@@ -1020,7 +1020,7 @@ def incremental_put(graph: BulkGraph, params: dict, ids: list, vecs: np.ndarray)
     if int(levels[bi]) > graph.entry_level:
         graph.entry_slot = int(slots[bi])
         graph.entry_level = int(levels[bi])
-    graph._hubs = {}
+    graph.forget()
 
 
 def incremental_delete(graph: BulkGraph, ids: list) -> int:

@@ -16,24 +16,32 @@ together:
   candidate/result heap pair;
 * **selection in bf16, ordering in f32**: traversal gathers and scores a
   bfloat16 copy of the vectors (half the bytes of the random gathers; the
-  products are widened to f32 and summed in f32, as the JAX package's
-  ``preferred_element_type``); the final result set re-scores every
-  surviving beam entry from the f32 block and orders by exact (rank, lex
-  id), so bf16 affects only which nodes reach the beam, never how results
-  rank.
+  products are exact in f32 and summed in f32, as the JAX package's
+  ``preferred_element_type``: on a CUDA device a bf16 product with f32
+  output, on the CPU a product of the widened operands); the final result
+  set re-scores every surviving beam entry from the f32 block and orders by
+  exact (rank, lex id), so bf16 affects only which nodes reach the beam,
+  never how results rank.
 
 Ties resolve as the JAX package resolves them: its ``top_k`` picks the
 lowest index among equals and its sorts are stable, so every selection here
 is a stable ``torch.sort`` (``ops/topk.py``), never ``torch.topk``.
 
 The JAX package runs each query's beam as a ``while_loop`` under ``vmap``.
-Here the queries still searching take each step together. A step of a
-query that has converged changes nothing (it expands no node, adds no
-candidate, and the stable merge leaves its sorted beam in place), so
-running it on is the same as stopping it: the convergence flags are read on
-the host only every ``_DONE_EVERY`` steps, and then the converged queries
-leave the working set. The loop ends when every query has converged or
-after ``step_bound`` steps.
+Here every query of the batch takes each step together. A step of a query
+that has converged changes nothing (it expands no node, adds no candidate,
+and the stable merge leaves its sorted beam in place), so running it on is
+the same as stopping it: the batch keeps its shape, and the host reads the
+count of converged queries only every ``_DONE_EVERY`` steps. The loop ends
+when every query has converged or after ``step_bound`` steps.
+
+Because the shapes stay fixed, on a CUDA device the ``_DONE_EVERY`` steps
+between two reads are one captured CUDA graph (:class:`BeamGraphs`): the
+host replays it instead of launching each step's ~70 kernels. The batch is
+padded to its bucket (a power of two up to 64 rows, a multiple of 64 above)
+by repeats of its first query, so a graph serves every batch size of its
+bucket; a graph keeps only the few most recently used captures. CPU
+tensors run the same steps eagerly.
 
 The visited bitset keeps 32 bits in each int64 word (torch has no shifts for
 uint32): a bit is added by a scatter-add, which stays exact because the
@@ -43,6 +51,9 @@ rows' bytes; results are per query, so the chunk size cannot change them.
 """
 
 from __future__ import annotations
+
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -61,6 +72,20 @@ _CHUNK_BYTES = 2 << 30
 
 #: beam steps between two reads of the convergence flags on the host
 _DONE_EVERY = 2
+
+#: batches above this many rows are padded to a multiple of it (smaller
+#: ones to a power of two), so a padded batch runs less than 64 rows more
+_BUCKET = 64
+
+#: captured beams a device graph keeps (the least recently used go first):
+#: each holds its buffers and its graph's memory on the card
+_BEAMS_KEPT = 4
+
+#: per device, the one side stream every capture runs on (cuBLAS keeps a
+#: workspace for each stream it has run on), and the lock that gives it to
+#: one capture at a time
+_CAPTURE_STREAMS = {}
+_CAPTURE_LOCK = threading.Lock()
 
 _BIG32 = 2**31 - 1
 
@@ -138,6 +163,8 @@ class DeviceGraph:
         self._hub_slots_np = np.asarray(hub_slots, dtype=np.int32)
         self._xb = None
         self._hubs = {}
+        #: the beam's reusable parts over these arrays (its captured steps)
+        self.beams = BeamGraphs()
 
     @classmethod
     def from_host(cls, host) -> "DeviceGraph":
@@ -206,6 +233,12 @@ class DeviceGraph:
             return None
         return self.valid[torch.from_numpy(self._hub_slots().astype(np.int64)).to(self.x.device)]
 
+    def forget(self) -> None:
+        """Drops what was derived from the arrays (the hub rows, the beam's
+        adjacency copy and captured steps): every write to them calls it."""
+        self._hubs = {}
+        self.beams = BeamGraphs()
+
 
 def _any_on_host(flags) -> bool:
     """Whether any of ``flags`` holds: a host read (a wait for the device)."""
@@ -226,18 +259,211 @@ def _set_bits(visited, slots, mask):
     visited.scatter_add_(1, slots >> 5, mask.long() << (slots & 31))
 
 
+def _bucket(b: int) -> int:
+    """The batch a captured beam runs at: ``b`` rounded up to a power of two
+    up to ``_BUCKET`` rows, to a multiple of ``_BUCKET`` above."""
+    if b > _BUCKET:
+        return -(-b // _BUCKET) * _BUCKET
+    return 1 << (b - 1).bit_length()
+
+
+def _chunk(fit: int) -> int:
+    """The largest bucket of at most ``fit`` rows (at least 1): a chunk of
+    queries padded to its bucket stays within the bytes that sized it."""
+    if fit >= _BUCKET:
+        return fit // _BUCKET * _BUCKET
+    return 1 << (max(1, fit).bit_length() - 1)
+
+
+class _Beam:
+    """The layer-0 beam of ``rows`` queries, in tensors that keep their
+    storage from step to step (a captured graph reads and writes them in
+    place): the sorted beam (rank, slot, expanded flag), the visited bitset,
+    the traversal queries, each row's count of fresh neighbours scored, and
+    the count of converged rows after the last block of steps."""
+
+    def __init__(self, rows, ef, words, d, dtype, dev):
+        self.d = torch.empty((rows, ef), device=dev)
+        self.id = torch.empty((rows, ef), dtype=torch.int64, device=dev)
+        self.exp = torch.empty((rows, ef), dtype=torch.bool, device=dev)
+        self.visited = torch.empty((rows, words), dtype=torch.int64, device=dev)
+        self.qt = torch.empty((rows, d), dtype=dtype, device=dev)
+        self.scored = torch.empty(rows, dtype=torch.int64, device=dev)
+        self.n_done = torch.empty((), dtype=torch.int64, device=dev)
+        #: the captured block of ``_DONE_EVERY`` steps (CUDA), once made
+        self.graph = None
+        #: held by the call that uses the buffers; the stream it used them on
+        self.lock = threading.Lock()
+        self.stream = None
+
+    def reset(self) -> None:
+        self.d.fill_(float("inf"))
+        self.id.fill_(-1)
+        self.exp.zero_()
+        self.visited.zero_()
+        self.scored.zero_()
+
+
+class BeamGraphs:
+    """The parts of the layer-0 beam that outlive a call, for one device
+    graph (``DeviceGraph.beams``; ``parallel.hnsw_mesh`` keeps one a shard):
+    per device, the adjacency with a row of -1 appended (row ``n``: the
+    neighbours of a node not expanded); on a CUDA device, per (device,
+    padded batch, ef, W, traversal dtype, metric), the beam's buffers and
+    its captured steps, the ``_BEAMS_KEPT`` most recently used only. The
+    loop reads neither ``valid`` nor the hubs, so they are no part of the
+    key. A write to the graph's arrays drops the whole object
+    (``DeviceGraph.forget``)."""
+
+    def __init__(self):
+        self._a0x = {}
+        self._beams = OrderedDict()
+        self._lock = threading.Lock()
+
+    def __deepcopy__(self, memo):
+        # what a copy of the graph needs is remade on its first search
+        return BeamGraphs()
+
+    def adjacency(self, a0):
+        if a0.device not in self._a0x:
+            self._a0x[a0.device] = torch.cat([a0, a0.new_full((1, a0.shape[1]), -1)])
+        return self._a0x[a0.device]
+
+    def beam(self, key, make):
+        """The beam kept under ``key``, made by ``make`` on first use. Beyond
+        ``_BEAMS_KEPT`` the least recently used is dropped: its buffers and
+        its graph's memory are freed once no call holds it (every limit
+        above ``ef_search`` is an ``ef`` of its own, so the keys a service
+        asks for are not bounded)."""
+        with self._lock:
+            beam = self._beams.pop(key, None)
+            if beam is None:
+                beam = make()
+            self._beams[key] = beam
+            while len(self._beams) > _BEAMS_KEPT:
+                self._beams.popitem(last=False)
+        return beam
+
+
+def _frontier(beam, w):
+    """The ``w`` best unexpanded entries of each beam (ranks ascending, +inf
+    where there are fewer; their positions), and whether the beam has
+    converged: the reference's stop, when its best unexpanded entry cannot
+    improve the result set (a beam not yet full has a worst entry of +inf)."""
+    top_d, jpos = smallest(beam.d.masked_fill(beam.exp | (beam.id < 0), float("inf")), w)
+    best = top_d[:, 0]
+    return top_d, jpos, torch.isinf(best) | (best > beam.d[:, -1])
+
+
+def _traversal_rank(rows, q, metric):
+    """``_rank_rows`` of a step's gathered rows [B, E, d] against ``q`` [B,
+    d]. On a CUDA device bf16 rows of a dot metric multiply as bf16 with f32
+    accumulation and output, reading the rows once where widening them
+    first writes and reads an f32 copy twice their size; the products are
+    exact in f32 either way, only the order of the f32 sums differs. The
+    CPU has no such product (``torch.bmm`` takes no ``out_dtype`` there),
+    so it keeps the widened one: that is the reference the JAX comparisons
+    hold, and the card tests hold the card's traversal against it."""
+    if metric != "l2" and rows.is_cuda and rows.dtype == torch.bfloat16:
+        dots = torch.bmm(rows, q.unsqueeze(-1), out_dtype=torch.float32).squeeze(-1)
+        return 1.0 - dots if metric == "cosine" else -dots
+    return _rank_rows(rows, q, metric)
+
+
+def _step(beam, xt, a0x, metric, w):
+    """One layer-0 step (hnsw.rs:375-434, widened) on ``beam``'s buffers, in
+    place: the ``w`` best unexpanded entries of each row expand, their fresh
+    neighbours are scored and marked visited, and the best ``ef`` of beam
+    and neighbours stay. A converged row expands nothing and keeps its beam.
+    The loop is bound by its launches (eagerly) or by the card, so a step is
+    written with few tensor calls: the beam stays sorted (its worst entry is
+    its last), ``a0x``'s row of -1 gives an unexpanded node no neighbours,
+    rows are gathered by ``index_select`` and the bit arithmetic reuses its
+    shifts."""
+    inf = float("inf")
+    n = a0x.shape[0] - 1
+    top_d, jpos, done = _frontier(beam, w)
+    expand_ok = torch.isfinite(top_d.masked_fill(done[:, None], inf))
+    nodes = torch.where(expand_ok, beam.id.gather(1, jpos), n)
+    nbrs = a0x.index_select(0, nodes.reshape(-1)).reshape(nodes.shape[0], -1).long()
+    # two expanded nodes can share a neighbour: keep its first place in the
+    # step (the bitset's scatter-add needs unique bits). A stable sort puts
+    # equal slots together in step order; all but the first of a run repeat
+    sorted_nbrs, perm = torch.sort(nbrs, dim=1, stable=True)
+    repeat = torch.zeros_like(nbrs, dtype=torch.bool)
+    repeat[:, 1:] = sorted_nbrs[:, 1:] == sorted_nbrs[:, :-1]
+    dup = torch.empty_like(repeat).scatter_(1, perm, repeat)
+    safe = nbrs.clamp_min(0)
+    word, shift = safe >> 5, safe & 31
+    seen = (beam.visited.gather(1, word) >> shift) & 1
+    fresh = (nbrs >= 0) & ~dup & (seen == 0)
+    # bits of fresh positions only (unique, unset); the rest add 0
+    beam.visited.scatter_add_(1, word, fresh.long() << shift)
+    rows = xt.index_select(0, safe.reshape(-1)).reshape(*safe.shape, -1)
+    nd = _traversal_rank(rows, beam.qt, metric).masked_fill(~fresh, inf)
+    beam.scored += fresh.sum(dim=1)
+    cat_d = torch.cat([beam.d, nd], dim=1)
+    cat_id = torch.cat([beam.id, nbrs.masked_fill(~fresh, -1)], dim=1)
+    cat_exp = torch.cat([beam.exp.scatter(1, jpos, beam.exp.gather(1, jpos) | expand_ok),
+                         torch.zeros_like(fresh)], dim=1)
+    # single-key distance merge, stable: interior ties keep their
+    # concatenation order; the exact epilogue restores (f32 rank, lex id)
+    best, order = smallest(cat_d, beam.d.shape[1])
+    beam.d.copy_(best)
+    torch.gather(cat_id, 1, order, out=beam.id)
+    torch.gather(cat_exp, 1, order, out=beam.exp)
+
+
+def _steps(beam, k, xt, a0x, metric, w):
+    """``k`` steps, then the count of converged rows into ``beam.n_done``."""
+    for _ in range(k):
+        _step(beam, xt, a0x, metric, w)
+    beam.n_done.copy_(_frontier(beam, w)[2].sum())
+
+
+def _replay(beam, block, dev):
+    """Runs ``block`` (``_DONE_EVERY`` steps) as ``beam``'s captured graph,
+    capturing it on first use: that block runs eagerly on the device's side
+    stream (the warm-up a capture needs, so that cuBLAS and the allocator
+    are set up outside it), then the same block is captured, which runs
+    nothing."""
+    if beam.graph is not None:
+        beam.graph.replay()
+        count("hnsw.replays")
+        return
+    current = torch.cuda.current_stream(dev)
+    graph = torch.cuda.CUDAGraph()
+    with _CAPTURE_LOCK:
+        side = _CAPTURE_STREAMS.get(dev)
+        if side is None:
+            side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            block()
+            graph.capture_begin()
+            try:
+                block()
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
+    beam.graph = graph
+    count("hnsw.captures")
+
+
 def search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, queries, *,
                 metric, lmax, ef, limit, max_steps, xb=None, expand_w=None, hub_slots=None,
-                hub_x=None, hub_valid=None, valid=None):
+                hub_x=None, hub_valid=None, valid=None, beams=None):
     """Batched beam search of ``queries`` [B, d] f32 (the JAX package's
     ``_search_impl``). ``xb`` is the optional bf16 traversal block (defaults
     to ``x``: full-f32 mode). With ``hub_slots`` / ``hub_x`` the beam seeds
     from a dense hub scan instead of the greedy upper-layer descent;
     ``hub_valid`` masks hub rows that are not live. ``valid`` (bool [n])
-    masks tombstoned slots out of the results only. Returns ``(ids [B,
-    limit] int64, raws [B, limit] f32, ranks [B, limit] f32)``; missing
-    results are id -1, raw and rank +inf."""
-    n, m0 = a0.shape
+    masks tombstoned slots out of the results only. ``beams`` (a
+    :class:`BeamGraphs` over these arrays) keeps the beam's parts between
+    calls; on a CUDA device the steps then replay as captured graphs.
+    Returns ``(ids [B, limit] int64, raws [B, limit] f32, ranks [B, limit]
+    f32)``; missing results are id -1, raw and rank +inf."""
+    n = a0.shape[0]
     dev = x.device
     B = queries.shape[0]
     words = (n + 31) // 32
@@ -248,131 +474,104 @@ def search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, quer
     q = queries.float()
     qt = q.to(xt.dtype)
 
-    beam_d = torch.full((B, ef), float("inf"), device=dev)
-    beam_id = torch.full((B, ef), -1, dtype=torch.int64, device=dev)
-    beam_exp = torch.zeros((B, ef), dtype=torch.bool, device=dev)
-    visited = torch.zeros((B, words), dtype=torch.int64, device=dev)
+    parts = beams if beams is not None else BeamGraphs()
+    a0x = parts.adjacency(a0)
+    rows, beam = B, None
+    if beams is not None and dev.type == "cuda":
+        rows = _bucket(B)
+        beam = beams.beam((dev, rows, ef, W, xt.dtype, metric),
+                          lambda: _Beam(rows, ef, words, q.shape[1], xt.dtype, dev))
+        if beam.lock.acquire(blocking=False):
+            current = torch.cuda.current_stream(dev)
+            if beam.stream is not None and beam.stream != current:
+                current.wait_stream(beam.stream)
+            beam.stream = current
+        else:  # another thread's call holds the buffers: this one runs eagerly
+            rows, beam = B, None
+    cached = beam is not None
+    if beam is None:
+        beam = _Beam(B, ef, words, q.shape[1], xt.dtype, dev)
+    try:
+        beam.reset()
+        beam_d, beam_id, visited = beam.d[:B], beam.id[:B], beam.visited[:B]
+        if use_hubs:
+            # ---- hub seeding: one dense scan of the top-H-by-level nodes
+            hd = _rank_matrix(qt, hub_x, metric)
+            if hub_valid is not None:
+                hd = hd.masked_fill(~hub_valid[None, :], float("inf"))
+            seed_d, hpos = smallest(hd, S)
+            ok_seed = torch.isfinite(seed_d)
+            seeds = torch.where(ok_seed, hub_slots[hpos], -1)
+            beam_d[:, :S] = seed_d  # ascending, +inf where no seed
+            beam_id[:, :S] = seeds
+            # hub positions are distinct, so the scatter-add stays exact
+            _set_bits(visited, seeds.clamp_min(0), ok_seed)
+        else:
+            # ---- greedy descent over the upper layers (hnsw.rs:302-305,336-372)
+            g = torch.full((B,), int(entry_slot), dtype=torch.int64, device=dev)
+            for layer in range(min(lmax, int(entry_level)), 0, -1):
+                gd = _rank_rows(xt[g][:, None, :], qt, metric)[:, 0]
+                moved = torch.ones(B, dtype=torch.bool, device=dev)
+                while _any_on_host(moved):
+                    u = up_index[g].long()
+                    row = up_adj[u.clamp_min(0), layer - 1].long()
+                    row = torch.where((u >= 0)[:, None], row, torch.full_like(row, -1))
+                    ok = row >= 0
+                    dists = torch.where(ok, _rank_rows(xt[row.clamp_min(0)], qt, metric),
+                                        torch.full(row.shape, float("inf"), device=dev))
+                    j = dists.argmin(dim=1, keepdim=True)
+                    best = dists.gather(1, j)[:, 0]
+                    moved = best < gd  # a lane that stopped stays stopped
+                    g = torch.where(moved, row.gather(1, j)[:, 0], g)
+                    gd = torch.where(moved, best, gd)
+            beam_d[:, 0] = _rank_rows(xt[g][:, None, :], qt, metric)[:, 0]
+            beam_id[:, 0] = g
+            _set_bits(visited, g[:, None], torch.ones((B, 1), dtype=torch.bool, device=dev))
+        beam.qt[:B] = qt
+        if rows > B:  # pad rows repeat the first query: they converge with it
+            for t in (beam.d, beam.id, beam.visited, beam.qt):
+                t[B:] = t[:1]
 
-    if use_hubs:
-        # ---- hub seeding: one dense scan of the top-H-by-level nodes
-        hd = _rank_matrix(qt, hub_x, metric)
-        if hub_valid is not None:
-            hd = hd.masked_fill(~hub_valid[None, :], float("inf"))
-        seed_d, hpos = smallest(hd, S)
-        ok_seed = torch.isfinite(seed_d)
-        seeds = torch.where(ok_seed, hub_slots[hpos], -1)
-        beam_d[:, :S] = seed_d  # ascending, +inf where no seed
-        beam_id[:, :S] = seeds
-        # hub positions are distinct, so the scatter-add stays exact
-        _set_bits(visited, seeds.clamp_min(0), ok_seed)
-    else:
-        # ---- greedy descent over the upper layers (hnsw.rs:302-305,336-372)
-        g = torch.full((B,), int(entry_slot), dtype=torch.int64, device=dev)
-        for layer in range(min(lmax, int(entry_level)), 0, -1):
-            gd = _rank_rows(xt[g][:, None, :], qt, metric)[:, 0]
-            moved = torch.ones(B, dtype=torch.bool, device=dev)
-            while _any_on_host(moved):
-                u = up_index[g].long()
-                row = up_adj[u.clamp_min(0), layer - 1].long()
-                row = torch.where((u >= 0)[:, None], row, torch.full_like(row, -1))
-                ok = row >= 0
-                dists = torch.where(ok, _rank_rows(xt[row.clamp_min(0)], qt, metric),
-                                    torch.full(row.shape, float("inf"), device=dev))
-                j = dists.argmin(dim=1, keepdim=True)
-                best = dists.gather(1, j)[:, 0]
-                moved = best < gd  # a lane that stopped stays stopped
-                g = torch.where(moved, row.gather(1, j)[:, 0], g)
-                gd = torch.where(moved, best, gd)
-        beam_d[:, 0] = _rank_rows(xt[g][:, None, :], qt, metric)[:, 0]
-        beam_id[:, 0] = g
-        _set_bits(visited, g[:, None], torch.ones((B, 1), dtype=torch.bool, device=dev))
+        # ---- layer-0 beam: blocks of _DONE_EVERY steps at the full batch,
+        # the count of converged rows read after each (the last block may be
+        # shorter, and runs eagerly)
+        def block(k=_DONE_EVERY):
+            _steps(beam, k, xt, a0x, metric, W)
 
-    # ---- layer-0 beam (hnsw.rs:375-434), widened: the W best unexpanded
-    # entries expand per step. ``live`` holds the batch positions of the
-    # queries still searching; a converged query's beam goes to ``final_*``
-    # and leaves the working set at the next check. The loop is bound by
-    # the host's launches, so each step is written with few tensor calls:
-    # the beam stays sorted (its worst entry is its last), a row of -1
-    # appended to ``a0`` (row n) makes an unexpanded node's neighbours -1,
-    # rows are gathered by ``index_select`` and the bit arithmetic reuses
-    # its shifts
-    E = W * m0
-    inf = float("inf")
-    earlier = torch.ones((E, E), dtype=torch.bool, device=dev).tril(-1)  # [i, j]: j < i
-    a0x = torch.cat([a0, a0.new_full((1, m0), -1)])  # row n: no neighbours
-    final_d, final_id = beam_d.clone(), beam_id.clone()
-    live = torch.arange(B, device=dev)
-    # while a profiler records: the fresh neighbours scored, summed on the
-    # device (observability.snapshot reads the sum, not the search)
-    scored = torch.zeros((), dtype=torch.int64, device=dev) if tracing() else None
-    steps = 0
-    for step in range(max_steps):
-        top_d, jpos = smallest(beam_d.masked_fill(beam_exp | (beam_id < 0), inf), W)
-        # reference termination: stop when the best unexpanded entry cannot
-        # improve the result set (beam not full => worst = inf)
-        best = top_d[:, 0]
-        done = torch.isinf(best) | (best > beam_d[:, -1])
-        n_done = 0
-        if step and step % _DONE_EVERY == 0:
-            with span("index.wait"):
-                n_done = int(done.sum())
-        if n_done:
-            # converged rows last, each group in batch order; index tensors,
-            # not boolean masks, so that this check syncs once
-            order = torch.sort(done.to(torch.int8), stable=True).indices
-            keep, gone = order[:done.numel() - n_done], order[done.numel() - n_done:]
-            final_d[live[gone]], final_id[live[gone]] = beam_d[gone], beam_id[gone]
-            if not keep.numel():
-                break
-            live, beam_d, beam_id, beam_exp = live[keep], beam_d[keep], beam_id[keep], beam_exp[keep]
-            visited, qt, top_d, jpos, done = (visited[keep], qt[keep], top_d[keep],
-                                              jpos[keep], done[keep])
-        expand_ok = torch.isfinite(top_d.masked_fill(done[:, None], inf))
+        steps = 0
+        while steps < max_steps:
+            k = min(_DONE_EVERY, max_steps - steps)
+            if cached and k == _DONE_EVERY:
+                _replay(beam, block, dev)
+            else:
+                block(k)
+            steps += k
+            if steps < max_steps:
+                with span("index.wait"):
+                    if int(beam.n_done) == rows:
+                        break
+        count("hnsw.steps", steps)
+        # the step adds each row's fresh neighbours to ``scored`` whether or
+        # not a trace runs (a captured step cannot branch on it)
+        if tracing():
+            count("hnsw.nodes", beam.scored[:B].sum())
 
-        nodes = torch.where(expand_ok, beam_id.gather(1, jpos), n)
-        nbrs = a0x.index_select(0, nodes.reshape(-1)).reshape(-1, E).long()
-        # two expanded nodes can share a neighbour: keep its first place in
-        # the step (the bitset's scatter-add needs unique bits)
-        dup = ((nbrs[:, None, :] == nbrs[:, :, None]) & earlier).any(dim=2)
-        safe = nbrs.clamp_min(0)
-        word, shift = safe >> 5, safe & 31
-        seen = (visited.gather(1, word) >> shift) & 1
-        fresh = (nbrs >= 0) & ~dup & (seen == 0)
-        # bits of fresh positions only (unique, unset); the rest add 0
-        visited.scatter_add_(1, word, fresh.long() << shift)
-        rows = xt.index_select(0, safe.reshape(-1)).reshape(*safe.shape, -1)
-        nd = _rank_rows(rows, qt, metric).masked_fill(~fresh, inf)
-        steps += 1
-        if scored is not None:
-            scored += fresh.sum()
-        cat_d = torch.cat([beam_d, nd], dim=1)
-        cat_id = torch.cat([beam_id, nbrs.masked_fill(~fresh, -1)], dim=1)
-        cat_exp = torch.cat([beam_exp.scatter(1, jpos, beam_exp.gather(1, jpos) | expand_ok),
-                             torch.zeros_like(fresh)], dim=1)
-        # single-key distance merge, stable: interior ties keep their
-        # concatenation order; the exact epilogue restores (f32 rank, lex id)
-        beam_d, order = smallest(cat_d, ef)
-        beam_id = cat_id.gather(1, order)
-        beam_exp = cat_exp.gather(1, order)
-    final_d[live], final_id[live] = beam_d, beam_id
-    beam_d, beam_id = final_d, final_id
-    count("hnsw.steps", steps)
-    if scored is not None:
-        count("hnsw.nodes", scored)
-
-    # ---- exact epilogue: re-score every surviving beam entry from the f32
-    # block and order by (f32 rank, lex id) — hnsw.rs:322-333's (dist,
-    # external_id) sort — so bf16 traversal never affects ranking
-    ok = beam_id >= 0
-    safe = beam_id.clamp_min(0)
-    if valid is not None:
-        ok = ok & valid[safe]
-        beam_id = torch.where(ok, beam_id, -1)
-    rank32 = _rank_rows(x[safe], q, metric).masked_fill(~ok, float("inf"))
-    lex = torch.where(ok, lex_rank[safe].long(), _BIG32)
-    order = lex_sort(rank32, lex)
-    top_id = beam_id.gather(1, order)[:, :limit]
-    top_d = rank32.gather(1, order)[:, :limit]
+        # ---- exact epilogue: re-score every surviving beam entry from the
+        # f32 block and order by (f32 rank, lex id) — hnsw.rs:322-333's
+        # (dist, external_id) sort — so bf16 traversal never affects ranking
+        ok = beam_id >= 0
+        safe = beam_id.clamp_min(0)
+        if valid is not None:
+            ok = ok & valid[safe]
+            beam_id = torch.where(ok, beam_id, -1)
+        rank32 = _rank_rows(x[safe], q, metric).masked_fill(~ok, float("inf"))
+        lex = torch.where(ok, lex_rank[safe].long(), _BIG32)
+        order = lex_sort(rank32, lex)
+        top_id = beam_id.gather(1, order)[:, :limit]
+        top_d = rank32.gather(1, order)[:, :limit]
+    finally:
+        if cached:
+            beam.lock.release()
     if metric == "l2":
         raw = top_d
     else:
@@ -407,10 +606,11 @@ def search_tensors(host, queries, limit: int):
     hub_slots, hub_x = graph.hubs(torch.bfloat16 if bf16 else torch.float32)
     w = host.params.get("expand_w") or EXPAND_W
     d = graph.x.shape[1]
-    # the bitset's int64 words; a step's rows gathered (bf16) and widened
-    # (f32), with headroom
+    # the bitset's int64 words; a step's gathered rows (bf16, or f32 where
+    # they are widened: l2, f32 traversal, the CPU) and the step's other
+    # temporaries, with headroom
     per_query = 8 * ((graph.a0.shape[0] + 31) // 32) + 10 * min(w, ef) * graph.m0 * d
-    chunk = max(1, _CHUNK_BYTES // per_query)
+    chunk = _chunk(_CHUNK_BYTES // per_query)
     outs = [
         search_impl(
             graph.x, graph.a0, graph.up_index, graph.up_adj, graph.lex_rank,
@@ -418,7 +618,7 @@ def search_tensors(host, queries, limit: int):
             metric=graph.metric, lmax=graph.lmax, ef=ef, limit=k,
             max_steps=step_bound(ef, w), xb=graph.xb if bf16 else None,
             hub_slots=hub_slots, hub_x=hub_x, hub_valid=graph.hub_validity(),
-            valid=graph.valid, expand_w=w,
+            valid=graph.valid, expand_w=w, beams=graph.beams,
         )[:2]
         for start in range(0, queries.shape[0], chunk)
     ]

@@ -11,6 +11,9 @@ The spans and counters named in ``SPANS`` and ``COUNTERS`` exist only while a
 ``torch.profiler`` session records: ``trace(dir)`` opens one, and so does any
 ``torch.profiler.profile`` of the caller's. There is no other switch. While
 none records, a span or counter site costs one test of the profiler's flag.
+(What ``hnsw.nodes`` reads is the one exception: the HNSW beam adds each
+query's fresh neighbours to a count on the device at every step, traced or
+not, since a captured step cannot test the flag; the counter reads the sum.)
 While one records, each span
 
 * adds its count, total seconds and self seconds (its duration less the
@@ -71,8 +74,10 @@ SPANS = tuple(f"collection.{op}" for op in COLLECTION_OPS) + (
 
 #: every counter name, with what it counts
 COUNTERS = (
-    "hnsw.steps",  # layer-0 beam steps run
-    "hnsw.nodes",  # fresh neighbours the beam scored
+    "hnsw.steps",     # layer-0 beam steps run
+    "hnsw.nodes",     # fresh neighbours the beam scored
+    "hnsw.replays",   # captured blocks of beam steps replayed (CUDA graphs)
+    "hnsw.captures",  # blocks of beam steps captured as CUDA graphs
 )
 
 

@@ -86,8 +86,10 @@ class ShardedHnsw:
         self._mut = None  # _MeshMut once incrementally mutated
         self._lex_host = lexs
         #: per shard, its search operands on its device in every data row
-        #: (``mesh.copies``), re-placed after each write to the shard
+        #: (``mesh.copies``), re-placed after each write to the shard, and
+        #: the beam's parts over them (``hnsw_device.BeamGraphs``)
         self._placed = [None] * shards
+        self._beams = [None] * shards
         #: per-shard device planes: global lex rank, global row (-1: none)
         self._lex = [None] * shards
         self._rows = [None] * shards
@@ -112,6 +114,7 @@ class ShardedHnsw:
         self._row_of = [s[5].cpu().numpy() for s in shards]
         self._mut = None
         self._placed = [mesh.copies(s, st) for s, st in enumerate(shards)]
+        self._beams = [hnsw_device.BeamGraphs() for _ in shards]
         return self
 
     @property
@@ -133,6 +136,7 @@ class ShardedHnsw:
         self._placed[s] = self.mesh.copies(s, (
             g.x[:n], g.a0[:n], g.up_index[:n], g.up_adj, self._lex[s][:n], self._rows[s][:n],
             g.entry_slot, g.entry_level, g.lmax))
+        self._beams[s] = hnsw_device.BeamGraphs()
 
     def search_device(self, queries, *, ef: int, k: int):
         """Beam search of a prepared ``[B, d]`` f32 batch (``B`` a multiple
@@ -158,7 +162,7 @@ class ShardedHnsw:
                     hub_slots=torch.arange(h, device=dev), hub_x=x[:h],
                     hub_valid=rows[:h] >= 0,
                     # tombstoned and pad slots keep routing but never surface
-                    valid=rows >= 0)
+                    valid=rows >= 0, beams=self._beams[s])
                 # drop pad nodes (row -1) BEFORE the merge: with finite
                 # distances they would displace real candidates
                 safe = slots.clamp_min(0)
