@@ -8,7 +8,7 @@ import json
 import pytest
 
 from benchmark import harness
-from conftest import CELLS, cell_of, run_tiny
+from conftest import CELLS, assert_has_its_metrics, cell_of, run_tiny
 
 KEYS = ("correct", "attempted", "failed", "metrics", "device")
 
@@ -44,13 +44,7 @@ def test_every_cell_has_its_metrics():
     """Every cell reports setup_s, another end-to-end metric and a
     per-layer metric, each with a reader."""
     for name in CELLS:
-        cell = cell_of(name)
-        e2e = {m["name"] for m in cell.end_to_end}
-        assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
-        for m in cell.end_to_end:
-            assert callable(harness.reader("end_to_end", m["name"]))
-        for m in cell.per_layer:
-            assert callable(harness.reader("layer_metrics", m["name"]))
+        assert_has_its_metrics(cell_of(name))
 
 
 def test_every_traffic_names_a_loop():
