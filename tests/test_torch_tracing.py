@@ -32,6 +32,8 @@ import vettore_tpu_torch as vt
 from vettore_tpu_torch import errors as terr
 from vettore_tpu_torch import observability as obs
 from vettore_tpu_torch.index import hnsw_device
+from vettore_tpu_torch.ops import mmr
+from vettore_tpu_torch.ops import pipeline as pipe
 from vettore_tpu_torch.parallel import make_mesh, sharded_search
 
 torch.set_num_threads(2)
@@ -77,6 +79,38 @@ def _cpu_blocks(shards, rows=1024):
 
 def _hits(answers):
     return [[(r.id, r.score) for r in row] for row in answers]
+
+
+@pytest.fixture(scope="module")
+def colbert():
+    """A ColBERT-shaped HNSW collection: documents of 4 token rows by
+    ``put_tokens``, its primary vectors their means."""
+    n, t = 300, 4
+    tokens = np.random.default_rng(3).normal(size=(n, t, D)).astype(np.float32)
+    col = vt.Collection(name="colbert", dimensions=D, index="hnsw", metric="cosine",
+                        normalize="none", device="cpu")
+    col.put_tokens([f"c{i:03d}" for i in range(n)], tokens)
+    return col, tokens
+
+
+#: the hybrid generators of BASELINE config 5
+COLBERT_GENS = [("hnsw", {"candidates": 40}), ("quantized", {"candidates": 40})]
+
+
+def _colbert_call(colbert, b, rerank="multi_vector", limit=10):
+    """One ``hybrid_search_batch`` of ``b`` query sets (each a document's
+    tokens plus noise, its primary row their mean) and ``mmr_rerank_batch``
+    of its hits; returns the hits and the picks."""
+    col, tokens = colbert
+    sets = tokens[:b] + 0.1 * np.random.default_rng(b).normal(size=tokens[:b].shape)
+    sets = sets.astype(np.float32)
+    hits = col.hybrid_search_batch(
+        sets.mean(axis=1), limit=limit, generators=COLBERT_GENS,
+        rerank=("multi_vector", [list(s) for s in sets]) if rerank == "multi_vector" else rerank)
+    vecs = np.stack([[col.get(r.id).vector for r in row] for row in hits])
+    picks = mmr.mmr_rerank_batch([[(r.id, r.score) for r in row] for row in hits], vecs,
+                                 metric="cosine", alpha=0.5, final_k=5, device="cpu")
+    return hits, picks
 
 
 def test_no_profiler_records_nothing_and_answers_the_same(flat):
@@ -245,6 +279,96 @@ def test_sharded_search_launch_per_shard(shards):
         abs=1e-9)
 
 
+#: each span of the hybrid path a call, by rerank: the rerank's outputs
+#: and the generators' ok flags are one host read each
+HYBRID_SPANS = {
+    "multi_vector": {"collection.hybrid_search_batch": 1, "collection.validate": 1,
+                     "collection.normalize": 1, "collection.validate_tokens": 1,
+                     "hybrid.hnsw": 1, "hybrid.quantized": 1, "hybrid.union": 1,
+                     "hybrid.rerank": 1, "hybrid.wait": 4, "collection.hydrate": 1,
+                     "mmr.rerank": 1},
+    "exact": {"collection.hybrid_search_batch": 1, "collection.validate": 1,
+              "collection.normalize": 1, "hybrid.hnsw": 1, "hybrid.quantized": 1,
+              "hybrid.union": 1, "hybrid.rerank": 1, "hybrid.wait": 5,
+              "collection.hydrate": 1, "mmr.rerank": 1},
+}
+
+
+@pytest.mark.parametrize("rerank", sorted(HYBRID_SPANS))
+def test_hybrid_spans_per_call(colbert, rerank):
+    calls = 3
+    obs.reset()
+    plain = [_colbert_call(colbert, 4, rerank) for _ in range(calls)]
+    assert obs.snapshot() == {"spans": {}, "counters": {}}
+    with _profiler():
+        traced = [_colbert_call(colbert, 4, rerank) for _ in range(calls)]
+    assert [(_hits(h), p) for h, p in plain] == [(_hits(h), p) for h, p in traced]
+    spans = obs.snapshot()["spans"]
+    hybrid = {n: s["count"] for n, s in spans.items()
+              if n.startswith(("hybrid.", "mmr.", "collection."))}
+    assert hybrid == {n: calls * c for n, c in HYBRID_SPANS[rerank].items()}
+    for name, s in spans.items():
+        assert 0 <= s["self_s"] <= s["total_s"], name
+    rerank_span, waits = spans["hybrid.rerank"], spans["hybrid.wait"]
+    assert rerank_span["total_s"] >= waits["total_s"]
+    # the beam's own reads and steps lie inside the hnsw generator's span
+    assert spans["index.wait"]["total_s"] <= spans["hybrid.hnsw"]["total_s"]
+    assert "index.search_batch" not in spans
+
+
+def test_hybrid_funnel_and_search_generators_have_their_spans(flat):
+    col, x = flat
+    with _profiler():
+        col.hybrid_search_batch(x[:4], limit=3, generators=["funnel", "search"])
+    spans = obs.snapshot()["spans"]
+    assert spans["hybrid.funnel"]["count"] == 1 and spans["hybrid.search"]["count"] == 1
+    assert "hybrid.hnsw" not in spans and "hybrid.quantized" not in spans
+
+
+def test_hybrid_candidates_count_the_union(colbert, monkeypatch):
+    seen = []
+    real = pipe.union_candidates
+
+    def kept(blocks):
+        out = real(blocks)
+        seen.append(int(out[1].sum()))
+        return out
+
+    monkeypatch.setattr(pipe, "union_candidates", kept)
+    with _profiler():
+        _colbert_call(colbert, 4)
+        _colbert_call(colbert, 6)
+    snap = obs.snapshot()
+    assert len(seen) == 2 and snap["counters"]["hybrid.candidates"] == sum(seen)
+    # each query keeps at least one generator's candidates
+    assert sum(seen) >= (4 + 6) * 40
+    assert snap["counters"]["hybrid.reruns"] == 0
+
+
+def test_hybrid_reruns_follow_host_routes():
+    """Half the corpus is one repeated vector: the funnel's stage-1 ranks
+    tie past the selection's slack, and the batch query re-runs alone."""
+    rng = np.random.default_rng(4)
+    n = 512
+    data = rng.normal(size=(n, D)).astype(np.float32)
+    data[: n // 2] = data[0]
+    col = vt.Collection(name="spill", dimensions=D, device="cpu")
+    col.put_matrix([f"r-{i:04d}" for i in rng.permutation(n)], data)
+    queries = np.stack([data[0] + 0.01 * rng.normal(size=D), rng.normal(size=D)])
+    gens = [("funnel", {"candidates": 20})]
+    plain = col.hybrid_search_batch(queries, limit=5, generators=gens)
+    routes = col.host_routes
+    with _profiler():
+        traced = col.hybrid_search_batch(queries, limit=5, generators=gens)
+    snap = obs.snapshot()
+    assert _hits(plain) == _hits(traced)
+    reruns = snap["counters"]["hybrid.reruns"]
+    # each re-run is one host route, and so is the host scan its funnel takes
+    assert reruns >= 1 and col.host_routes - routes == 2 * reruns == routes
+    # the re-run lies outside the batch's hydration
+    assert snap["spans"]["collection.hydrate"]["count"] == 1
+
+
 def test_a_new_session_starts_empty(flat):
     col, x = flat
     with _profiler():
@@ -260,7 +384,7 @@ def test_a_new_session_starts_empty(flat):
     assert spans["index.wait"]["count"] == 3 and "collection.search" not in spans
 
 
-def test_every_recorded_name_is_declared(flat, hnsw):
+def test_every_recorded_name_is_declared(flat, hnsw, colbert):
     mesh, blocks, xm = _cpu_blocks(2)
     with _profiler():
         flat[0].search_batch(flat[1][:4], limit=3)
@@ -268,6 +392,8 @@ def test_every_recorded_name_is_declared(flat, hnsw):
         hnsw[0].search(hnsw[1][0], limit=3)
         hnsw[0].search_batch(hnsw[1][:4], limit=3)
         sharded_search(mesh, *blocks, xm[:4], metric="cosine", k=3)
+        _colbert_call(colbert, 4)
+        flat[0].hybrid_search_batch(flat[1][:4], limit=3, generators=["funnel", "search"])
     snap = obs.snapshot()
     assert set(snap["spans"]) <= set(obs.SPANS)
     # the beam's captured graphs exist on CUDA devices only (the card tests

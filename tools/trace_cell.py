@@ -64,7 +64,8 @@ def idle_by_span(events, card: int = 0) -> dict:
     spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
              if e.get("ph") == "X" and e.get("cat") == "cpu_op" and e.get("name") in names]
     tids = {e["tid"] for e in events if e.get("ph") == "X" and e.get("name") in names}
-    roots = [(s, e) for s, e, n in spans if n.startswith(("collection.search", "mesh.search"))]
+    roots = [(s, e) for s, e, n in spans
+             if n.startswith(("collection.search", "collection.hybrid_search", "mesh.search"))]
     if not roots:
         return {}
     lo, hi = min(s for s, _ in roots), max(e for _, e in roots)

@@ -57,7 +57,8 @@ from .metrics import (
     normalize_metric,
     result_values,
 )
-from .observability import StatsRegistry, observed, span
+from .observability import StatsRegistry, observed, span, tracing
+from .observability import count as count_event
 from .ops import flat_scan, scan_host
 from .ops import maxsim as maxsim_ops
 from .ops import muvera_fde
@@ -143,6 +144,16 @@ def _cap_at_least(n: int, floor: int = 8) -> int:
     if n <= _ROW_TILE:
         return _pow2_at_least(n, floor)
     return -(-n // _ROW_TILE) * _ROW_TILE
+
+
+def _read_all(tensors) -> tuple:
+    """Each device tensor of ``tensors`` read to the host as a numpy array,
+    each read a ``hybrid.wait`` span."""
+    out = []
+    for t in tensors:
+        with span("hybrid.wait"):
+            out.append(t.cpu().numpy())
+    return tuple(out)
 
 
 def _has_tokens(vs) -> bool:
@@ -1438,14 +1449,15 @@ class Collection:
         """Prepares a batch of ragged query token sets: ``(qtok [B, Qmax, d]
         f32, qmask [B, Qmax] bool)`` with Qmax the next power of two of the
         longest set."""
-        per = [self._prepare_query_vectors(qs) for qs in query_sets]
-        qmax = _pow2_at_least(max(p.shape[0] for p in per), 1)
-        qtok = np.zeros((len(per), qmax, self.dimensions), np.float32)
-        qmask = np.zeros((len(per), qmax), bool)
-        for i, p in enumerate(per):
-            qtok[i, : p.shape[0]] = p
-            qmask[i, : p.shape[0]] = True
-        return qtok, qmask
+        with span("collection.validate_tokens"):
+            per = [self._prepare_query_vectors(qs) for qs in query_sets]
+            qmax = _pow2_at_least(max(p.shape[0] for p in per), 1)
+            qtok = np.zeros((len(per), qmax, self.dimensions), np.float32)
+            qmask = np.zeros((len(per), qmax), bool)
+            for i, p in enumerate(per):
+                qtok[i, : p.shape[0]] = p
+                qmask[i, : p.shape[0]] = True
+            return qtok, qmask
 
     def _mv_slots_to_results(self, cache, slots, scores, metric) -> list:
         return [
@@ -1727,43 +1739,50 @@ class Collection:
         gen_ok = torch.ones(prepared.shape[0], dtype=torch.bool, device=self.device)
         for name, candidates, stages in parsed:
             count = min(candidates, cache.n)
-            if name == "funnel":
-                x, valid = cache.vectors()
-                stage_xsq = self._funnel_stage_xsq(cache, stages, count)
-                if mesh is not None:
-                    slots, slot_ok, g_ok = amesh.sharded_funnel_candidates(
-                        mesh, x, valid, stage_xsq, qdev, n=cache.n, metric=self.metric,
-                        stages=tuple(stages), count=count)
+            with span(f"hybrid.{name}"):
+                if name == "funnel":
+                    x, valid = cache.vectors()
+                    stage_xsq = self._funnel_stage_xsq(cache, stages, count)
+                    if mesh is not None:
+                        slots, slot_ok, g_ok = amesh.sharded_funnel_candidates(
+                            mesh, x, valid, stage_xsq, qdev, n=cache.n, metric=self.metric,
+                            stages=tuple(stages), count=count)
+                    else:
+                        slots, slot_ok, g_ok = pipe.funnel_candidates_batch(
+                            x, valid, qdev, stage_xsq,
+                            metric=self.metric, stages=tuple(stages), count=count)
+                elif name == "quantized":
+                    fn = (pipe.quantized_candidates_batch if mesh is None else
+                          lambda *a, **kw: amesh.sharded_quantized_candidates(mesh, *a,
+                                                                              n=cache.n, **kw))
+                    slots, slot_ok, g_ok = fn(cache.signs(), cache.valid_mask(), qdev,
+                                              count=count, d=self.dimensions)
                 else:
-                    slots, slot_ok, g_ok = pipe.funnel_candidates_batch(
-                        x, valid, qdev, stage_xsq,
-                        metric=self.metric, stages=tuple(stages), count=count)
-            elif name == "quantized":
-                fn = (pipe.quantized_candidates_batch if mesh is None else
-                      lambda *a, **kw: amesh.sharded_quantized_candidates(mesh, *a, n=cache.n,
-                                                                          **kw))
-                slots, slot_ok, g_ok = fn(cache.signs(), cache.valid_mask(), qdev,
-                                          count=count, d=self.dimensions)
-            else:
-                # a mesh index has no device candidates: the host path
-                blocks.append(self._index_candidates(cache, name, prepared, qdev, count))
-                continue
-            blocks.append(torch.where(slot_ok, slots, _BIG32))
-            gen_ok = gen_ok & g_ok
-        # one integer dtype for the union's sort (index slot tables are int32)
-        u_slots, u_ok = pipe.union_candidates(torch.cat([blk.long() for blk in blocks], dim=1))
+                    # a mesh index has no device candidates: the host path
+                    blocks.append(self._index_candidates(cache, name, prepared, qdev, count))
+                    continue
+                blocks.append(torch.where(slot_ok, slots, _BIG32))
+                gen_ok = gen_ok & g_ok
+        with span("hybrid.union"):
+            # one integer dtype for the union's sort (index slot tables are int32)
+            u_slots, u_ok = pipe.union_candidates(torch.cat([blk.long() for blk in blocks],
+                                                            dim=1))
+        if tracing():  # a device sum, so the untraced path launches nothing for it
+            count_event("hybrid.candidates", u_ok[:b].sum())
         k = min(limit, cache.n)
 
         if mv is None:
             x, _valid = cache.vectors()
             rerank_fn = (pipe.rerank_batch if mesh is None else
                          lambda *a, **kw: amesh.sharded_subset_rerank(mesh, *a, n=cache.n, **kw))
-            top, raws, ranks, fin = (t.cpu().numpy() for t in rerank_fn(
-                x, u_slots, u_ok, qdev, metric=self.metric, limit=k))
-            ok = fin & gen_ok.cpu().numpy()
-            return [self._slots_to_results(cache, top[i], raws[i], ranks[i]) if ok[i]
-                    else self._hybrid_fallback(queries, i, limit, generators, rerank)
-                    for i in range(b)]
+            with span("hybrid.rerank"):
+                top, raws, ranks, fin, g_ok = _read_all(
+                    (*rerank_fn(x, u_slots, u_ok, qdev, metric=self.metric, limit=k), gen_ok))
+            ok = fin & g_ok
+            with span("collection.hydrate"):
+                out = [self._slots_to_results(cache, top[i], raws[i], ranks[i]) if ok[i]
+                       else None for i in range(b)]
+            return self._hybrid_reruns(out, queries, limit, generators, lambda i: rerank)
 
         qsets = mv[1]
         qtok, qmask = (self._mesh_pad(a) for a in self._pad_query_sets(qsets))
@@ -1779,18 +1798,31 @@ class Collection:
             bs = max(data, bs - bs % data)
             subset = lambda *a, **kw: amesh.sharded_subset_maxsim(  # noqa: E731
                 mesh, *a, n=cache.n, **kw)
-        qtok_t = self._query_tensor(qtok)
-        qmask_t = torch.from_numpy(qmask).to(self.device)
-        parts = [subset(
-            tokens, counts, u_slots[s:s + bs], u_ok[s:s + bs], qtok_t[s:s + bs],
-            qmask_t[s:s + bs], metric=mv_metric, limit=k)
-            for s in range(0, qtok.shape[0], bs)]
-        top, scores, mv_ok = (torch.cat([p[j] for p in parts]).cpu().numpy() for j in range(3))
-        ok = mv_ok & gen_ok.cpu().numpy()
-        return [self._mv_slots_to_results(cache, top[i], scores[i], mv_metric) if ok[i]
-                else self._hybrid_fallback(queries, i, limit, generators,
-                                           ("multi_vector", qsets[i]) + tuple(rerank[2:]))
-                for i in range(b)]
+        with span("hybrid.rerank"):
+            qtok_t = self._query_tensor(qtok)
+            qmask_t = torch.from_numpy(qmask).to(self.device)
+            parts = [subset(
+                tokens, counts, u_slots[s:s + bs], u_ok[s:s + bs], qtok_t[s:s + bs],
+                qmask_t[s:s + bs], metric=mv_metric, limit=k)
+                for s in range(0, qtok.shape[0], bs)]
+            top, scores, mv_ok, g_ok = _read_all(
+                (*(torch.cat([p[j] for p in parts]) for j in range(3)), gen_ok))
+        ok = mv_ok & g_ok
+        with span("collection.hydrate"):
+            out = [self._mv_slots_to_results(cache, top[i], scores[i], mv_metric) if ok[i]
+                   else None for i in range(b)]
+        return self._hybrid_reruns(out, queries, limit, generators,
+                                   lambda i: ("multi_vector", qsets[i]) + tuple(rerank[2:]))
+
+    def _hybrid_reruns(self, out, queries, limit, generators, rerank_of) -> list:
+        """``out`` with each query the batch left as None re-run alone
+        (``_hybrid_fallback``, with ``rerank_of(i)``), counted in the
+        ``hybrid.reruns`` counter."""
+        reruns = [i for i, hits in enumerate(out) if hits is None]
+        for i in reruns:
+            out[i] = self._hybrid_fallback(queries, i, limit, generators, rerank_of(i))
+        count_event("hybrid.reruns", len(reruns))
+        return out
 
     def _index_candidates(self, cache, name, prepared, qdev, count):
         """The ``search`` / ``hnsw`` generator over the whole batch: the

@@ -62,6 +62,7 @@ SPANS = tuple(f"collection.{op}" for op in COLLECTION_OPS) + (
     "collection.validate",   # a search's query checks and float64 conversion
     "collection.normalize",  # its float64 normalisation
     "collection.hydrate",    # its store lookups and Result objects, once a call
+    "collection.validate_tokens",  # the query token sets' checks, normalisation and padding
     "index.search",          # FlatIndex.search, HnswIndex.search
     "index.search_batch",    # FlatIndex.search_batch, HnswIndex.search_batch
     "index.validate",        # the index's own query checks
@@ -70,6 +71,14 @@ SPANS = tuple(f"collection.{op}" for op in COLLECTION_OPS) + (
     "mesh.search",           # sharded_search, ShardedFlat.search_device
     "mesh.launch",           # one shard's search call, enqueued by the host
     "mesh.wait",             # one read of a fused shard search's ok flag
+    "hybrid.hnsw",           # hybrid_search_batch's hnsw generator (the beam, its slot table)
+    "hybrid.quantized",      # its quantized generator (the sign scan and group rows)
+    "hybrid.funnel",         # its funnel generator
+    "hybrid.search",         # its search generator (the index's own device search)
+    "hybrid.union",          # the generators' candidate union on the device
+    "hybrid.rerank",         # the exact or MaxSim rerank and its reads to the host
+    "hybrid.wait",           # one host read of a rerank output or of the generators' ok flags
+    "mmr.rerank",            # ops.mmr.mmr_rerank_batch, its read to the host included
 )
 
 #: every counter name, with what it counts
@@ -78,6 +87,8 @@ COUNTERS = (
     "hnsw.nodes",     # fresh neighbours the beam scored
     "hnsw.replays",   # captured blocks of beam steps replayed (CUDA graphs)
     "hnsw.captures",  # blocks of beam steps captured as CUDA graphs
+    "hybrid.candidates",  # live candidates after a hybrid batch's union, summed over its queries
+    "hybrid.reruns",      # hybrid batch queries re-run alone (their share of host_routes)
 )
 
 

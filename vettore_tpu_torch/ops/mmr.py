@@ -26,6 +26,7 @@ import torch
 from ..errors import InvalidMmrArgs, UnknownMetric
 from ..index.flat import resolve_device
 from ..metrics import DISTANCE_METRICS, SIMILARITY_METRICS
+from ..observability import span
 from .distance import _check_f32, _finite_f32, _raw_f64, no_tf32
 
 
@@ -205,6 +206,7 @@ def mmr_select_batch(scores, sims, valid, alpha: float, *, final_k: int) -> torc
     return order
 
 
+@span("mmr.rerank")
 def mmr_rerank_batch(initial_lists, vecs, *, metric, alpha, final_k, device="cuda") -> list:
     """Batched MMR on ``device``: ``initial_lists`` is a list of per-query
     ``[(id, query_score)]`` candidate lists (ragged ok), ``vecs`` a
