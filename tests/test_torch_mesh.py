@@ -13,21 +13,28 @@ fused search is not ``ok`` (a 64-way tie) reruns on the plain scan and is
 counted. ``sharded_search(mesh, x, valid, lex_rank, queries, *, metric,
 k)`` against JAX's on the same numpy blocks (2 and 4 virtual devices, data
 1 and 2, f32 and bf16 rows, mass ties, shards on the plain scan and on the
-fused search): the same slots, raws within 1e-6.
+fused search): the same slots, raws within 1e-6. The fused search's row
+norms and bias are derived once for a block: repeated calls run no norm
+pass, one distinct shard tensor one pass; an in-place write, a write
+through a view or a replaced part of ``x`` or ``valid`` derives them anew,
+and the search answers for the changed block as JAX's does.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 jax = pytest.importorskip("jax")
 
 from vettore_tpu.parallel import ShardedFlat as JShardedFlat
 from vettore_tpu.parallel import make_mesh as jmake_mesh
+from vettore_tpu_torch import observability as obs
 from vettore_tpu_torch.index import flat as tflat
 from vettore_tpu_torch.index.flat import FlatIndex
 from vettore_tpu_torch.ops import flat_scan
 from vettore_tpu_torch.parallel import ShardedFlat, make_mesh, sharded_search
+from vettore_tpu_torch.parallel import mesh as tmesh
 from vettore_tpu_torch.parallel.cost import expected_merge_bytes, gathered_bytes
 
 torch.set_num_threads(2)
@@ -370,3 +377,168 @@ def test_fused_tie_spill_reruns_on_the_plain_scan(fused_shards):
     hits = sharded.search_batch(np.ones((1, 4), dtype=np.float32), 10)[0]
     assert [h[0] for h in hits] == ids[:10]
     assert fused_shards["n"] == 2 and sharded.reruns == 2
+
+
+# ---------------------------------------------------------------------------
+# The fused search's row norms and row bias, derived once for a block
+# (``Blocks.derived``) and kept while its shard tensors are unchanged: an
+# in-place write, a write through a view or a replaced part derives them
+# again, and the next search answers for the changed block as JAX does.
+# ---------------------------------------------------------------------------
+
+ROWS = 128
+#: the written row is ``NEAR * q_0``: query 0's best row under l2 (squared
+#: distance 0.09), and far enough from q_0 that JAX's expanded distance
+#: (which cancels near 0) and the port's direct one agree within 1e-6
+NEAR = 0.7
+
+
+def placed(mesh, x, valid, lex, q):
+    """The numpy blocks placed shard by shard, each shard a tensor of its
+    own (a write to one leaves the others' versions), and the queries."""
+    shards = mesh.shape["shard"]
+    return (*(mesh.place([torch.from_numpy(p.copy()) for p in np.split(a, shards)])
+              for a in (x, valid, lex)), torch.from_numpy(q))
+
+
+def norm_passes(search):
+    """``search()``'s slots and raws as numpy arrays, and the norm passes
+    it ran (``mesh.norms`` under a profiler)."""
+    with profile(activities=[ProfilerActivity.CPU]):
+        slots, raws = search()
+    return (slots.numpy(), raws.numpy()), obs.snapshot()["counters"].get("mesh.norms")
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("devices,data", JAX_LAYOUTS)
+def test_repeated_searches_run_the_norm_pass_once(fused_shards, devices, data, metric):
+    """Three calls over the same blocks answer as JAX's and as fresh
+    blocks; the first runs one norm pass a distinct shard tensor (the data
+    rows of a CPU mesh share one), the others none."""
+    blocks = raw_blocks(devices // data, ROWS, 16)
+    want = jax_search(devices, data, *blocks, metric=metric, k=10)
+    mesh = cpu_mesh(devices // data, data)
+    bx, bv, bl, tq = placed(mesh, *blocks)
+    passes = []
+    for _ in range(3):
+        got, n = norm_passes(lambda: sharded_search(mesh, bx, bv, bl, tq, metric=metric, k=10))
+        assert_same_search(got, want)
+        passes.append(n)
+    assert passes == [devices // data, 0, 0]
+    fresh = port_search(devices, data, *blocks, metric=metric, k=10)
+    assert np.array_equal(got[0], fresh[0]) and np.array_equal(got[1], fresh[1])
+
+
+def _x_row_copy(bx, bv, i, near, top):
+    """Shard 1's long row := ``near`` by ``copy_``."""
+    bx.shard(1)[i].copy_(near)
+    return 1
+
+
+def _x_view_write(bx, bv, i, near, top):
+    """The same, by slice assignment into a flat view of the shard."""
+    d = near.shape[0]
+    bx.shard(1).view(-1)[i * d:(i + 1) * d] = near
+    return 1
+
+
+def _x_mul(bx, bv, i, near, top):
+    """The long row scaled by ``mul_`` to about ``near``."""
+    bx.shard(1)[i].mul_(NEAR / 3)
+    return 1
+
+
+def _x_part_replaced(bx, bv, i, near, top):
+    """Shard 1 replaced in ``parts`` (every data row) by a copy whose long
+    row is ``near``."""
+    new = bx.shard(1).clone()
+    new[i] = near
+    for row in bx.parts:
+        row[1] = new
+    return 1
+
+
+def _valid_write(bx, bv, i, near, top):
+    """Query 0's best row marked invalid in place."""
+    bv.shard(top // ROWS)[top % ROWS] = False
+    return 0
+
+
+def _valid_part_replaced(bx, bv, i, near, top):
+    """The same, the shard's validity replaced in ``parts``."""
+    new = bv.shard(top // ROWS).clone()
+    new[top % ROWS] = False
+    for row in bv.parts:
+        row[top // ROWS] = new
+    return 0
+
+
+WRITES = [_x_row_copy, _x_view_write, _x_mul, _x_part_replaced, _valid_write,
+          _valid_part_replaced]
+
+
+@pytest.mark.parametrize("write", WRITES, ids=lambda w: w.__name__.lstrip("_"))
+@pytest.mark.parametrize("devices,data", [(2, 1), (4, 2)])
+def test_a_changed_shard_is_never_served_stale_norms_or_bias(fused_shards, devices, data, write):
+    """A live row of shard 1 starts as 3 q_0 (squared norm 9). Each write
+    either makes it about ``NEAR * q_0``, query 0's best row, which the norm
+    kept from before the write (9) would rank last in its shard, or marks
+    query 0's best row invalid, which the bias kept from before would still
+    let through. The next search equals JAX's on the changed block, not
+    what the kept norms and bias give, and runs a norm pass on a changed
+    ``x`` shard alone."""
+    x, valid, lex, q = raw_blocks(devices // data, ROWS, 16, seed=4)
+    i = int(np.flatnonzero(valid[ROWS:2 * ROWS])[0])
+    x[ROWS + i] = 3 * q[0]
+    mesh = cpu_mesh(devices // data, data)
+    bx, bv, bl, tq = placed(mesh, x, valid, lex, q)
+    search = lambda: sharded_search(mesh, bx, bv, bl, tq, metric="l2", k=10)  # noqa: E731
+    before, passes = norm_passes(search)
+    assert passes == devices // data
+    kept = bx.derived("row_sq", None), bv.derived("bias", None)
+    changed = write(bx, bv, i, NEAR * tq[0], int(before[0][0, 0]))
+    got, passes = norm_passes(search)
+    assert passes == changed
+    x, valid = (torch.cat([b.shard(s) for s in range(mesh.shape["shard"])]).numpy()
+                for b in (bx, bv))
+    assert_same_search(got, jax_search(devices, data, x, valid, lex, q, metric="l2", k=10))
+    stale, _raws, _reruns = tmesh._search_shards(mesh, bx, bv, bl, tq, metric="l2", k=10,
+                                                 stride=ROWS, xsq=kept[0], bias=kept[1])
+    assert not np.array_equal(got[0], stale.numpy())
+
+
+def test_derived_keeps_one_entry_per_distinct_tensor():
+    """Two data rows on one device share each shard's tensor, and its
+    derived tensor: ``fn`` runs once a distinct tensor, again on a later
+    call only for a tensor written since (shards cut from one tensor are
+    views of it: a write to it is a write to each)."""
+    mesh = cpu_mesh(2, data=2)
+    base = torch.arange(8.0).reshape(8, 1)
+    blocks = mesh.shard_rows(base)
+    calls = []
+
+    def twice(t):
+        calls.append(t)
+        return 2 * t
+
+    first = blocks.derived("twice", twice)
+    assert len(calls) == 2 and first.shard(0, 0) is first.shard(0, 1)
+    again = blocks.derived("twice", twice)
+    assert len(calls) == 2
+    assert all(again.shard(s, r) is first.shard(s, r) for s in range(2) for r in range(2))
+    blocks.derived("other", twice)
+    assert len(calls) == 4
+    base[0] = 7.0
+    fresh = blocks.derived("twice", twice)
+    assert len(calls) == 6 and fresh.shard(0, 1)[0].item() == 14.0
+
+
+def test_derived_runs_on_every_call_over_inference_tensors():
+    """A tensor made under ``torch.inference_mode`` keeps no version: its
+    derived tensor is made anew each call, never kept."""
+    with torch.inference_mode():
+        blocks = cpu_mesh(2).shard_rows(torch.arange(8.0).reshape(8, 1))
+    calls = []
+    for _ in range(2):
+        blocks.derived("twice", lambda t: calls.append(t) or 2 * t)
+    assert len(calls) == 4

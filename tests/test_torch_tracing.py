@@ -11,7 +11,9 @@ its children's; the spans are CPU events of the profiler's trace (not user
 annotations) inside the caller's ``record_function``, and ranges of
 ``trace()``'s Chrome trace. The HNSW beam counts its steps (at most
 ``step_bound``) and the nodes it scored; ``sharded_search`` on a CPU mesh
-records one ``mesh.launch`` and one ``mesh.wait`` per shard a call. A new
+records one ``mesh.launch`` and one ``mesh.wait`` per shard a call, and
+counts its norm passes (``mesh.norms``): one a shard on a block's first
+call, 0 on the next. A new
 profiling session starts an empty registry; every recorded name is
 declared; ``Collection.stats()`` keeps its meaning with and without a
 profiler; threads' spans add up.
@@ -277,6 +279,24 @@ def test_sharded_search_launch_per_shard(shards):
     assert root["self_s"] == pytest.approx(
         root["total_s"] - spans["mesh.launch"]["total_s"] - spans["mesh.wait"]["total_s"],
         abs=1e-9)
+
+
+def test_mesh_norms_count_the_norm_passes_while_tracing():
+    """``mesh.norms`` counts the norm passes a call runs, only under a
+    profiler: one a shard on the first call over a block, 0 (recorded) on a
+    second over the same unchanged block, nothing without a profiler."""
+    assert "mesh.norms" in obs.COUNTERS
+    mesh, blocks, x = _cpu_blocks(2)
+    with _profiler():
+        sharded_search(mesh, *blocks, x[:4], metric="cosine", k=5)
+    assert obs.snapshot()["counters"]["mesh.norms"] == 2
+    with _profiler():
+        sharded_search(mesh, *blocks, x[4:8], metric="cosine", k=5)
+    assert obs.snapshot()["counters"]["mesh.norms"] == 0
+    obs.reset()
+    mesh, blocks, x = _cpu_blocks(2)
+    sharded_search(mesh, *blocks, x[:4], metric="cosine", k=5)
+    assert "mesh.norms" not in obs.snapshot()["counters"]
 
 
 #: each span of the hybrid path a call, by rerank: the rerank's outputs

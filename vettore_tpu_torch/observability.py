@@ -89,6 +89,7 @@ COUNTERS = (
     "hnsw.captures",  # blocks of beam steps captured as CUDA graphs
     "hybrid.candidates",  # live candidates after a hybrid batch's union, summed over its queries
     "hybrid.reruns",      # hybrid batch queries re-run alone (their share of host_routes)
+    "mesh.norms",     # sharded_search's squared-norm passes over a shard (its memo's misses)
 )
 
 

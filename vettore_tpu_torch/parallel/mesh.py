@@ -25,13 +25,14 @@ and keeps such blocks for a collection.
 from __future__ import annotations
 
 import math
+import weakref
 
 import numpy as np
 import torch
 
 from ..index import flat as flat_index
 from ..index.flat import _search_kernel, resolve_device
-from ..observability import span
+from ..observability import count, span
 from ..ops import flat_scan
 from ..ops.topk import lex_sort
 
@@ -154,6 +155,8 @@ class Blocks:
     def __init__(self, mesh: Mesh, parts):
         self.mesh = mesh
         self.parts = parts
+        #: ``derived``'s memos by name: ``{id(t): (weakref of t, stamp, fn(t))}``
+        self._derived = {}
 
     def shard(self, s: int, row: int = 0) -> torch.Tensor:
         return self.parts[row][s]
@@ -175,6 +178,35 @@ class Blocks:
                 out.append(made[id(t)])
             parts.append(out)
         return Blocks(self.mesh, parts)
+
+    def derived(self, name: str, fn) -> "Blocks":
+        """``map(fn)`` kept under ``name``: a later call returns the same
+        tensors of the shards that are unchanged, and runs ``fn`` again only
+        on a shard tensor that is new in ``parts`` or was written since.
+
+        A shard is known by the tensor itself (a weak reference, so a part
+        replaced in ``parts`` is a new shard), its ``data_ptr()`` and its
+        version counter, which every in-place torch write bumps: ``copy_``,
+        ``mul_``, ``index_put_``, slice assignment, a write through a view.
+        The key does not see a write behind torch's back (through ``.data``
+        or a raw pointer); a tensor made under ``torch.inference_mode``
+        keeps no version, and its ``fn`` runs on every call. JAX's arrays
+        never change in place, so this memo is the port's one departure
+        from the reference."""
+        old = self._derived.get(name, {})
+        memo = {}
+
+        def kept(t):
+            stamp = None if t.is_inference() else (t.data_ptr(), t._version)
+            hit = old.get(id(t))
+            if stamp is None or hit is None or hit[0]() is not t or hit[1] != stamp:
+                hit = (weakref.ref(t), stamp, fn(t))
+            memo[id(t)] = hit
+            return hit[2]
+
+        out = self.map(kept)
+        self._derived[name] = memo  # the present shards only: a replaced part's entry goes
+        return out
 
 
 def pad_batch(mesh: Mesh, rows):
@@ -233,7 +265,9 @@ def _merge_hits(mesh, per_shard, device, k):
 
 def _row_sq(x):
     """Squared norms of the rows of ``x`` in f32, in one pass over it (no
-    temporary of ``x``'s size: a shard may fill most of its card)."""
+    temporary of ``x``'s size: a shard may fill most of its card); each pass
+    is counted in ``mesh.norms``."""
+    count("mesh.norms")
     return torch.linalg.vector_norm(x, dim=1, dtype=torch.float32).square()
 
 
@@ -257,14 +291,17 @@ def _search_shards(mesh, x, valid, lex, queries, *, metric, k, stride, xsq=None,
     (JAX's ``_local_topk``, in the lex permutation's tie order); a fused
     shard batch that is not ``ok`` (a tie spill past the slack, or a batch
     that fails the overflow bound) reruns on the plain scan. ``xsq`` and
-    ``bias`` are derived from the blocks unless given. Shard ``s``'s local
-    row ``i`` is global slot ``s * stride + i``. Returns ``(slots [B, k]
-    int32, -1 where the rank is not finite; raws [B, k])`` on the mesh's
-    first device, and the number of reruns."""
+    ``bias`` are derived from the blocks unless given, once for a block
+    (``Blocks.derived``): a call over unchanged blocks runs no norm pass.
+    Shard ``s``'s local row ``i`` is global slot ``s * stride + i``.
+    Returns ``(slots [B, k] int32, -1 where the rank is not finite; raws
+    [B, k])`` on the mesh's first device, and the number of reruns."""
     fused = x.rows >= flat_index.FUSED_ROWS_MIN and flat_scan.supports(metric, x.rows, k)
     if fused:
-        xsq = xsq if xsq is not None else x.map(_row_sq)
-        bias = bias if bias is not None else valid.map(_bias)
+        if xsq is None:
+            count("mesh.norms", 0)  # so that a traced call that runs none reads 0
+            xsq = x.derived("row_sq", _row_sq)
+        bias = bias if bias is not None else valid.derived("bias", _bias)
 
     def plain(s, r, q):
         order = torch.argsort(lex.shard(s, r), stable=True)
@@ -409,8 +446,9 @@ def sharded_search(mesh: Mesh, x, valid, lex_rank, queries, *, metric: str, k: i
     indices, raws [B, k])`` on ``mesh.first``: global slot = shard * rows
     per shard + local row, merged by (rank, lex rank), slot -1 where the
     rank is not finite. Each shard searches on its own device (the fused
-    K1 + K2 search where its rows allow it); ``mesh.reruns`` counts the
-    shard batches that reran on the plain scan."""
+    K1 + K2 search where its rows allow it; its row norms and bias are
+    derived once and kept with ``x`` and ``valid``, see ``Blocks.derived``);
+    ``mesh.reruns`` counts the shard batches that reran on the plain scan."""
     for name, block in (("x", x), ("valid", valid), ("lex_rank", lex_rank)):
         if not isinstance(block, Blocks) or block.mesh is not mesh:
             raise ValueError(f"{name} is not a block placed on this mesh (placed on another "
