@@ -11,8 +11,9 @@ scores within 1e-5 of JAX's (f32 sums in another order), and the same
 the three metrics, hub seeding and the greedy descent, bf16 and f32
 traversal, a ``valid`` mask with tombstones, batches of 1, 5 and 64, ef at
 the limit and at 64, a batch that converges before ``max_steps`` and one
-that runs to it. The captured beams' padded batch sizes and the bound on
-the beams a graph keeps are checked here too.
+that runs to it. The captured beams' padded batch sizes, the bound on the
+beams a graph keeps and the step's duplicate test (``_repeats``) against
+the pairwise mask it replaced are checked here too.
 """
 
 import numpy as np
@@ -270,6 +271,26 @@ def test_fixed_batch_beam_matches_compacting_loop_and_jax(graphs, metric, hubs, 
     if tombstones:
         dead = set(np.flatnonzero(~valid).tolist())
         assert not dead & set(ids[ids >= 0].tolist())
+
+
+@pytest.mark.parametrize("span", [8, 1 << 20])
+@pytest.mark.parametrize("shape", [(64, 4 * 32), (64, 8 * 32), (4, 64, 88)],
+                         ids=["build step", "search step", "knn chunk"])
+def test_repeats_equal_the_pairwise_earlier_mask(shape, span):
+    """``_repeats`` (a stable sort) marks what the ``[..., E, E]`` mask it
+    replaced marked: every key equal to an earlier key of its row, -1s
+    included, at the shapes of the build's step, the search's step and the
+    kNN build's candidate chunk. Few distinct keys (``span`` 8) and many,
+    with runs of equal neighbours in both."""
+    gen = torch.Generator().manual_seed(span)
+    keys = torch.randint(0, span, shape, generator=gen)
+    keys = torch.where(torch.rand(shape, generator=gen) < 0.3, keys.roll(1, -1), keys)
+    keys[torch.rand(shape, generator=gen) < 0.1] = -1
+    k = shape[-1]
+    earlier = torch.ones((k, k), dtype=torch.bool).tril(-1)  # [i, j]: j < i
+    want = ((keys[..., None, :] == keys[..., :, None]) & earlier).any(dim=-1)
+    assert want.any() and not want.all()
+    assert torch.equal(tdev._repeats(keys), want)
 
 
 @pytest.mark.parametrize("b,bucket", [(1, 1), (5, 8), (64, 64), (65, 128), (300, 320),

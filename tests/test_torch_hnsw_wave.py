@@ -12,7 +12,9 @@ sums of another order swap float64 near-ties (``_assert_graphs_agree``),
 and recall@10 must lie within 0.01 of the JAX graph's. The port's graph
 must not depend on how its work is split: the wave's true top level against
 the JAX package's power-of-two bucket, the lane chunks, and how often the
-beam reads its convergence flags.
+beam reads its convergence flags. The build's layer beam, which takes the
+search's step, is held bit for bit against the loop it replaced
+(``_loop_beam_layer``, kept as it was).
 """
 
 import numpy as np
@@ -26,7 +28,9 @@ from vettore_tpu.index import hnsw_build as jbuild
 from vettore_tpu.index.hnsw import HnswIndex as JHnsw
 from vettore_tpu.index.hnsw import validate_options
 from vettore_tpu_torch.index import hnsw_build as tbuild
+from vettore_tpu_torch.index import hnsw_device as tdev
 from vettore_tpu_torch.index.hnsw import HnswIndex as THnsw
+from vettore_tpu_torch.ops.topk import smallest
 
 torch.set_num_threads(2)
 
@@ -187,3 +191,108 @@ def test_default_width_builds_through_the_index(grid_graphs, monkeypatch):
         index.put_matrix(ids, data)
         assert torch.equal(index._bulk.a0, want.a0)
         assert torch.equal(index._bulk.up_adj, want.up_adj)
+
+
+def _loop_beam_layer(xt, adj, q, g, start, *, metric, ef, words, max_steps, seeds=None):
+    """The build's layer beam as it was before it took the search's step:
+    its own step body, the ``nbrs < start`` mask on the layer's rows
+    (``adj`` without ``start``) and the pairwise ``[b, E, E]`` duplicate
+    mask. Returns ``(dists [b, ef], slots [b, ef])``."""
+    inf = float("inf")
+    b, dev = q.shape[0], q.device
+    W = min(tbuild.BUILD_EXPAND_W, ef)
+    beam_d = torch.full((b, ef), inf, device=dev)
+    beam_id = torch.full((b, ef), -1, dtype=torch.int64, device=dev)
+    beam_exp = torch.zeros((b, ef), dtype=torch.bool, device=dev)
+    visited = torch.zeros((b, words), dtype=torch.int64, device=dev)
+    if seeds is None:
+        beam_d[:, 0] = tdev._rank_rows(xt[g][:, None, :], q, metric)[:, 0]
+        beam_id[:, 0] = g
+        tdev._set_bits(visited, g[:, None], torch.ones((b, 1), dtype=torch.bool, device=dev))
+    else:
+        sd, si = seeds
+        ok = torch.isfinite(sd) & (si >= 0)
+        beam_d[:, :sd.shape[1]] = sd.masked_fill(~ok, inf)
+        beam_id[:, :sd.shape[1]] = si.masked_fill(~ok, -1)
+        tdev._set_bits(visited, si.clamp_min(0), ok)
+
+    final_d, final_id = beam_d.clone(), beam_id.clone()
+    lanes = torch.arange(b, device=dev)
+    earlier = None
+    for step in range(max_steps):
+        top_d, jpos = smallest(beam_d.masked_fill(beam_exp | (beam_id < 0), inf), W)
+        done = torch.isinf(top_d[:, 0]) | (top_d[:, 0] > beam_d[:, -1])
+        n_done = int(done.sum()) if step and step % tdev._DONE_EVERY == 0 else 0
+        if n_done:
+            order = torch.sort(done.to(torch.int8), stable=True).indices
+            keep, gone = order[:done.numel() - n_done], order[done.numel() - n_done:]
+            final_d[lanes[gone]], final_id[lanes[gone]] = beam_d[gone], beam_id[gone]
+            if not keep.numel():
+                break
+            lanes, beam_d, beam_id = lanes[keep], beam_d[keep], beam_id[keep]
+            beam_exp, visited, q = beam_exp[keep], visited[keep], q[keep]
+            top_d, jpos, done = top_d[keep], jpos[keep], done[keep]
+        expand_ok = torch.isfinite(top_d) & ~done[:, None]
+        nodes = beam_id.gather(1, jpos).clamp_min(0)
+        nbrs = adj(nodes)  # [b, W, deg]
+        ok = ((nbrs >= 0) & (nbrs < start) & expand_ok[..., None]).flatten(1)
+        nbrs = nbrs.flatten(1)
+        E = nbrs.shape[1]
+        if earlier is None:
+            earlier = torch.ones((E, E), dtype=torch.bool, device=dev).tril(-1)  # j < i
+        key = nbrs.masked_fill(~ok, -1)
+        dup = ((key[:, None, :] == key[:, :, None]) & earlier).any(dim=2)
+        safe = nbrs.clamp_min(0)
+        word, shift = safe >> 5, safe & 31
+        seen = (visited.gather(1, word) >> shift) & 1
+        fresh = ok & ~dup & (seen == 0)
+        visited.scatter_add_(1, word, fresh.long() << shift)
+        rows = xt.index_select(0, safe.reshape(-1)).reshape(*safe.shape, -1)
+        nd = tdev._rank_rows(rows, q, metric).masked_fill(~fresh, inf)
+        cat_d = torch.cat([beam_d, nd], dim=1)
+        cat_id = torch.cat([beam_id, nbrs.masked_fill(~fresh, -1)], dim=1)
+        cat_exp = torch.cat([beam_exp.scatter(1, jpos, beam_exp.gather(1, jpos) | expand_ok),
+                             torch.zeros_like(fresh)], dim=1)
+        beam_d, keep = smallest(cat_d, ef)
+        beam_id = cat_id.gather(1, keep)
+        beam_exp = cat_exp.gather(1, keep)
+    final_d[lanes], final_id[lanes] = beam_d, beam_id
+    return final_d, final_id
+
+
+@pytest.mark.parametrize("ef", [tbuild.BUILD_EXPAND_W, 16])
+@pytest.mark.parametrize("start", ["half the graph", "the whole graph"])
+@pytest.mark.parametrize("seeding,layer", [("entry", 0), ("entry", 1), ("hubs", 0)])
+@pytest.mark.parametrize("metric", METRICS)
+def test_layer_beam_equals_the_loop_it_replaced(grid_graphs, metric, seeding, layer, start, ef):
+    """The build's ``_beam_layer`` on the search's step, held bit for bit
+    against its own loop: 48 lanes of the grid graph (mass ties), from
+    entry slots or from hub seeds as ``_construct_search`` makes them. With
+    half the graph inserted, the rows of expanded nodes hold slots past
+    ``start`` (ineligible) besides the neighbours they share; ``ef`` equal
+    to W expands every entry of the beam at each step."""
+    _jg, tg, _data, _ids = grid_graphs[metric]
+    n, xt = tg.n, tg.xb
+    # the layer's nodes are a slot prefix; an upper node's row is its slot
+    nl = n if layer == 0 else int((tg.up_index >= 0).sum())
+    cut = nl // 2 if start == "half the graph" else n
+    rows = tg.a0[:nl] if layer == 0 else tg.up_adj[:nl, layer - 1]
+    if cut < n:
+        assert (rows[:cut] >= cut).any()
+    q = xt[n - 48:]
+    words = (n + 31) // 32
+    g = torch.from_numpy(np.random.default_rng(layer).integers(0, min(cut, nl), size=48))
+    seeds = None
+    if seeding == "hubs":
+        hd = tdev._rank_matrix(q, xt[:64], metric)
+        hd[:, cut:] = float("inf")
+        seed_d, hpos = smallest(hd, 4)
+        seeds = (seed_d, torch.where(torch.isfinite(seed_d), hpos, -1))
+    kw = {"metric": metric, "ef": ef, "words": words, "max_steps": tbuild.build_step_bound(ef),
+          "seeds": seeds}
+    got = tbuild._beam_layer(xt, tdev._adjacency(tg.a0, tg.up_adj, tg.up_index, layer, cut),
+                             q, g, **kw)
+    want = _loop_beam_layer(xt, tdev._adjacency(tg.a0, tg.up_adj, tg.up_index, layer), q, g,
+                            cut, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[1][:, 0] >= 0).all() and (got[1] < cut).all()

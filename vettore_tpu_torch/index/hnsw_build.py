@@ -10,7 +10,8 @@ here nodes are inserted in *waves*:
   is simply ``slot < wave_start`` (:func:`_prep_order`);
 * each wave runs the reference's insert search for all its nodes together
   (:func:`_wave_step`): greedy descent to the node's level, an
-  ``ef_construction`` beam per layer, and Malkov's diversity heuristic
+  ``ef_construction`` beam per layer (the search's descent and step,
+  ``hnsw_device.py``), and Malkov's diversity heuristic
   (:func:`_heuristic_select`) down to m/m0 neighbours;
 * nodes inside a wave cannot see each other through the frozen graph, so
   intra-wave candidates come from a ``[B, B]`` distance matrix merged into
@@ -53,28 +54,13 @@ import tempfile
 import numpy as np
 import torch
 
-from ..ops.distance import no_tf32
 from ..ops.topk import lex_sort, smallest
 from .flat import resolve_device
 from .hnsw import levels_batch
-from .hnsw_device import _DONE_EVERY, DeviceGraph, _rank_matrix, _rank_rows, _set_bits, hub_count
+from .hnsw_device import (_BIG32, _DONE_EVERY, DeviceGraph, _adjacency, _Beam, _descend, _frontier,
+                          _pairwise_rank, _rank_matrix, _rank_rows, _seed, _step, hub_count)
 
-_BIG32 = 2**31 - 1
 _INF = float("inf")
-
-
-def _pairwise_rank(cvecs, metric):
-    """Candidate-to-candidate rank distances ``[..., C, C]`` of ``cvecs``
-    ``[..., C, d]`` (selection only): the rows widened to f32 (bf16 products
-    are exact there) and multiplied in full f32, as the JAX package's
-    ``preferred_element_type=f32``."""
-    v = cvecs.float()
-    no_tf32(v)
-    dots = torch.matmul(v, v.transpose(-1, -2))
-    if metric == "l2":
-        sq = (v * v).sum(dim=-1)
-        return (sq[..., :, None] + sq[..., None, :] - 2 * dots).clamp_min(0.0).sqrt()
-    return 1.0 - dots if metric == "cosine" else -dots
 
 
 def _heuristic_select(cand_ids, cand_dists, P, deg):
@@ -276,125 +262,64 @@ def build_step_bound(efc: int, w: int = BUILD_EXPAND_W) -> int:
     return max(3 * efc // max(w, 1), 24) + 16
 
 
-def _adjacency(a0, up_adj, up_index, layer):
-    """``nodes [b, k] -> neighbours [b, k, deg]`` of one layer: ``a0`` at
-    layer 0, above it the node's upper row (-1 for a node without one)."""
-    if layer == 0:
-        return lambda nodes: a0[nodes].long()
-
-    def rows(nodes):
-        u = up_index[nodes].long()
-        got = up_adj[u.clamp_min(0), layer - 1].long()
-        return torch.where((u >= 0)[..., None], got, torch.full_like(got, -1))
-    return rows
-
-
-def _greedy_upper(xt, adj, q, g, start, enabled, metric):
-    """Greedy descent on one upper layer for the lanes of ``q`` [b, d] from
-    ``g`` [b]: the lanes where ``enabled`` holds move to a closer inserted
-    neighbour (slot < ``start``) while there is one; the others keep ``g``.
-    A lane that stopped stays stopped."""
-    gd = _rank_rows(xt[g][:, None, :], q, metric)[:, 0]
-    moved = enabled
-    while bool(moved.any()):
-        row = adj(g[:, None])[:, 0]
-        ok = (row >= 0) & (row < start)
-        dists = _rank_rows(xt[row.clamp_min(0)], q, metric).masked_fill(~ok, _INF)
-        j = dists.argmin(dim=1, keepdim=True)  # the first of equal minima
-        best = dists.gather(1, j)[:, 0]
-        moved = moved & (best < gd)
-        g = torch.where(moved, row.gather(1, j)[:, 0], g)
-        gd = torch.where(moved, best, gd)
-    return g
-
-
-def _beam_layer(xt, adj, q, g, start, *, metric, ef, words, max_steps, seeds=None):
+def _beam_layer(xt, adj, q, g, *, metric, ef, words, max_steps, seeds=None):
     """The construct beam over one layer for the lanes of ``q`` [b, d],
-    from the entry slots ``g`` [b] (each < ``start``) or, with ``seeds``
-    (``(dists [b, S], slots [b, S])``, ascending, +inf / -1 where absent),
-    from hub seeds. Each step expands the W best unexpanded entries, scores
-    their inserted neighbours not yet visited (a per-lane bitset), and keeps
-    the best ``ef`` by a stable merge (``jax.lax.top_k``'s order). Returns
-    ``(dists [b, ef], slots [b, ef])``, ascending, +inf / -1 padded.
+    from the entry slots ``g`` [b] or, with ``seeds`` (``(dists [b, S],
+    slots [b, S])``, ascending, slot -1 where absent), from hub seeds.
+    ``adj`` gives the layer's inserted neighbours only (``_adjacency`` with
+    ``start``). Each step is the search's (``hnsw_device._step``) with
+    full-f32 ranks: it expands the W best unexpanded entries, scores their
+    neighbours not yet visited and keeps the best ``ef`` by a stable merge
+    (``jax.lax.top_k``'s order). Returns ``(dists [b, ef], slots [b,
+    ef])``, ascending, +inf / -1 padded.
 
     The JAX package runs each lane's beam as a ``while_loop`` under
     ``vmap``; here the lanes take each step together. A converged lane's
     step changes nothing (it expands no node and the stable merge leaves its
     sorted beam in place), so stepping it on is the same as stopping it: the
     convergence flags are read on the host every ``_DONE_EVERY`` steps, and
-    the converged lanes then leave the working set."""
+    the converged lanes then leave the working set (the build's steps run
+    eagerly, so a converged lane would cost its full step)."""
     b, dev = q.shape[0], q.device
     W = min(BUILD_EXPAND_W, ef)
-    beam_d = torch.full((b, ef), _INF, device=dev)
-    beam_id = torch.full((b, ef), -1, dtype=torch.int64, device=dev)
-    beam_exp = torch.zeros((b, ef), dtype=torch.bool, device=dev)
-    visited = torch.zeros((b, words), dtype=torch.int64, device=dev)
+    beam = _Beam(b, ef, words, q.shape[1], q.dtype, dev)
+    beam.reset()
+    beam.qt = q
     if seeds is None:
-        beam_d[:, 0] = _rank_rows(xt[g][:, None, :], q, metric)[:, 0]
-        beam_id[:, 0] = g
-        _set_bits(visited, g[:, None], torch.ones((b, 1), dtype=torch.bool, device=dev))
-    else:
-        sd, si = seeds
-        ok = torch.isfinite(sd) & (si >= 0)
-        beam_d[:, :sd.shape[1]] = sd.masked_fill(~ok, _INF)
-        beam_id[:, :sd.shape[1]] = si.masked_fill(~ok, -1)
-        _set_bits(visited, si.clamp_min(0), ok)  # seed slots are distinct
+        seeds = (_rank_rows(xt[g][:, None, :], q, metric), g[:, None])
+    _seed(beam, *seeds)
 
-    final_d, final_id = beam_d.clone(), beam_id.clone()
+    def neighbours(nodes, expand):
+        return torch.where(expand[..., None], adj(nodes.clamp_min(0)), -1).flatten(1)
+
+    final_d, final_id = torch.empty_like(beam.d), torch.empty_like(beam.id)
     lanes = torch.arange(b, device=dev)
-    earlier = None
-    for step in range(max_steps):
-        top_d, jpos = smallest(beam_d.masked_fill(beam_exp | (beam_id < 0), _INF), W)
-        # the beam stays sorted ascending: its worst entry is its last
-        done = torch.isinf(top_d[:, 0]) | (top_d[:, 0] > beam_d[:, -1])
-        n_done = int(done.sum()) if step and step % _DONE_EVERY == 0 else 0  # a sync
-        if n_done:
-            order = torch.sort(done.to(torch.int8), stable=True).indices
-            keep, gone = order[:done.numel() - n_done], order[done.numel() - n_done:]
-            final_d[lanes[gone]], final_id[lanes[gone]] = beam_d[gone], beam_id[gone]
-            if not keep.numel():
-                break
-            lanes, beam_d, beam_id = lanes[keep], beam_d[keep], beam_id[keep]
-            beam_exp, visited, q = beam_exp[keep], visited[keep], q[keep]
-            top_d, jpos, done = top_d[keep], jpos[keep], done[keep]
-        expand_ok = torch.isfinite(top_d) & ~done[:, None]
-        nodes = beam_id.gather(1, jpos).clamp_min(0)
-        nbrs = adj(nodes)  # [b, W, deg]
-        ok = ((nbrs >= 0) & (nbrs < start) & expand_ok[..., None]).flatten(1)
-        nbrs = nbrs.flatten(1)
-        E = nbrs.shape[1]
-        if earlier is None:
-            earlier = torch.ones((E, E), dtype=torch.bool, device=dev).tril(-1)  # j < i
-        # two expanded nodes can share a neighbour: keep its first place in
-        # the step (the bitset's scatter-add needs unique bits)
-        key = nbrs.masked_fill(~ok, -1)
-        dup = ((key[:, None, :] == key[:, :, None]) & earlier).any(dim=2)
-        safe = nbrs.clamp_min(0)
-        word, shift = safe >> 5, safe & 31
-        seen = (visited.gather(1, word) >> shift) & 1
-        fresh = ok & ~dup & (seen == 0)
-        visited.scatter_add_(1, word, fresh.long() << shift)
-        rows = xt.index_select(0, safe.reshape(-1)).reshape(*safe.shape, -1)
-        nd = _rank_rows(rows, q, metric).masked_fill(~fresh, _INF)
-        cat_d = torch.cat([beam_d, nd], dim=1)
-        cat_id = torch.cat([beam_id, nbrs.masked_fill(~fresh, -1)], dim=1)
-        cat_exp = torch.cat([beam_exp.scatter(1, jpos, beam_exp.gather(1, jpos) | expand_ok),
-                             torch.zeros_like(fresh)], dim=1)
-        beam_d, keep = smallest(cat_d, ef)
-        beam_id = cat_id.gather(1, keep)
-        beam_exp = cat_exp.gather(1, keep)
-    final_d[lanes], final_id[lanes] = beam_d, beam_id
+    for step in range(0, max_steps, _DONE_EVERY):
+        if step:
+            done = _frontier(beam, W)[2]
+            n_done = int(done.sum())  # a sync
+            if n_done:
+                order = torch.sort(done.to(torch.int8), stable=True).indices
+                keep, gone = order[:done.numel() - n_done], order[done.numel() - n_done:]
+                final_d[lanes[gone]], final_id[lanes[gone]] = beam.d[gone], beam.id[gone]
+                if not keep.numel():
+                    break
+                lanes = lanes[keep]
+                for name in ("d", "id", "exp", "visited", "qt", "scored"):
+                    setattr(beam, name, getattr(beam, name)[keep])
+        for _ in range(min(_DONE_EVERY, max_steps - step)):
+            _step(beam, xt, neighbours, _rank_rows, metric, W)
+    final_d[lanes], final_id[lanes] = beam.d, beam.id
     return final_d, final_id
 
 
 def _lane_chunk(n_lanes, *, words, ef, deg_max, d, peers):
     """Lanes per chunk of a wave's construct search, from the bytes one lane
-    holds: its bitset, one step's gathered rows (bf16, widened to f32) and
-    pairwise duplicate mask, its candidate block for the heuristic and its
-    row of the peer matrix."""
+    holds: its bitset, one step's gathered rows (bf16, widened to f32), its
+    candidate block for the heuristic and its row of the peer matrix."""
     e = BUILD_EXPAND_W * deg_max
     c = ef + deg_max
-    per_lane = 8 * words + 6 * e * d + e * e + 6 * c * d + 4 * c * c + 16 * peers
+    per_lane = 8 * words + 6 * e * d + 6 * c * d + 4 * c * c + 16 * peers
     return max(1, min(n_lanes, _WAVE_CHUNK_BYTES // per_lane))
 
 
@@ -432,26 +357,26 @@ def _construct_search(xt, a0, up_adj, up_index, lex_rank, lv, slots, peer, wave_
     # layers above every wave node's level: pure greedy descent
     for layer in range(lmax, lmax_wave, -1):
         if has_graph and layer <= entry_level:
-            g = _greedy_upper(xt, _adjacency(a0, up_adj, up_index, layer), qt, g, start,
-                              all_lanes, metric)
+            g = _descend(xt, _adjacency(a0, up_adj, up_index, layer, start), qt, g, all_lanes,
+                         metric)
 
     for layer in range(lmax_wave, -1, -1):
         deg = m0 if layer == 0 else m
-        adj = _adjacency(a0, up_adj, up_index, layer)
+        adj = _adjacency(a0, up_adj, up_index, layer, start)
         in_graph_layer = has_graph and layer <= entry_level
         active = layer <= lv
         bd = torch.full((b, efc), _INF, device=dev)
         bi = torch.full((b, efc), -1, dtype=torch.int64, device=dev)
         if in_graph_layer:
             if layer >= 1:
-                g = _greedy_upper(xt, adj, qt, g, start, ~active, metric)
+                g = _descend(xt, adj, qt, g, ~active, metric)
             beam = active.nonzero()[:, 0]
             if beam.numel():
                 seeds = None
                 if layer == 0 and hub_seeds is not None:
                     seeds = (hub_seeds[0][beam], hub_seeds[1][beam])
                 bd[beam], bi[beam] = _beam_layer(
-                    xt, adj, qt[beam], g[beam], start, metric=metric, ef=efc, words=words,
+                    xt, adj, qt[beam], g[beam], metric=metric, ef=efc, words=words,
                     max_steps=beam_steps, seeds=seeds)
                 # next layer's entry = closest GRAPH candidate (a wave peer
                 # has no adjacency row yet and would stall the next beam)
@@ -503,11 +428,7 @@ def _reciprocal(x, xt, a0, up_adj, up_index, lex_rank, wave_slots, sel_ids, sel_
     idx = head[:, None] + torch.arange(deg, device=dev)
     in_seg = (idx < E) & (dkey[idx.clamp_max(E - 1)] == rows[:, None])
     inc = torch.where(in_seg, src_s[idx.clamp_max(E - 1)], -1)
-    if layer == 0:
-        exist = a0[rows].long()
-    else:
-        up_rows = up_index[rows].long()
-        exist = up_adj[up_rows, layer - 1].long()
+    exist = _adjacency(a0, up_adj, up_index, layer)(rows)
     cand = torch.cat([exist, inc], dim=1)  # [rows, 2 * deg]
 
     pruned = torch.empty((rows.shape[0], deg), dtype=torch.int64, device=dev)
@@ -531,7 +452,7 @@ def _reciprocal(x, xt, a0, up_adj, up_index, lex_rank, wave_slots, sel_ids, sel_
     if layer == 0:
         a0[rows] = pruned.to(a0.dtype)
     else:
-        up_adj[up_rows, layer - 1] = pruned.to(up_adj.dtype)
+        up_adj[up_index[rows].long(), layer - 1] = pruned.to(up_adj.dtype)
 
 
 def _wave_step(x, xt, a0, up_adj, up_index, lex_rank, levels, wave_slots, start, entry_slot,
@@ -554,18 +475,9 @@ def _wave_step(x, xt, a0, up_adj, up_index, lex_rank, levels, wave_slots, start,
     B = wave_slots.shape[0]
 
     # ---- intra-wave candidate matrix (peers cannot be reached through the
-    # frozen graph, so they compete through a dense [B, B] distance block):
-    # a plain product, in full f32
-    wave_x = x[wave_slots]
-    no_tf32(wave_x)
-    dots = wave_x @ wave_x.T
-    if metric == "l2":
-        sq = (wave_x * wave_x).sum(dim=1)
-        peer_rank = (sq[:, None] + sq[None, :] - 2 * dots).clamp_min(0.0).sqrt()
-    else:
-        peer_rank = 1.0 - dots if metric == "cosine" else -dots
+    # frozen graph, so they compete through a dense [B, B] distance block)
+    peer_rank = _pairwise_rank(x[wave_slots], metric)
     peer_rank.fill_diagonal_(_INF)
-    del dots
     wave_levels = levels[wave_slots].long()
 
     # ---- per-lane construct search, in chunks of lanes

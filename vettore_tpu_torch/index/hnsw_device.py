@@ -48,6 +48,10 @@ uint32): a bit is added by a scatter-add, which stays exact because the
 positions of one step are unique (duplicates are masked first) and never
 already set. Queries run in chunks sized by the bitset's and the gathered
 rows' bytes; results are per query, so the chunk size cannot change them.
+
+The search and the bulk builds (``hnsw_build.py``, ``hnsw_knn_build.py``)
+share the traversal defined here: :func:`_step`, :func:`_descend`,
+:func:`_seed`, :func:`_repeats` and :func:`_pairwise_rank`.
 """
 
 from __future__ import annotations
@@ -135,6 +139,20 @@ def _rank_matrix(q, rows, metric):
     step = max(1, (1 << 26) // max(1, rows.numel()))
     return torch.cat([_rank_rows(rows.expand(q[s:s + step].shape[0], -1, -1), q[s:s + step], "l2")
                       for s in range(0, q.shape[0], step)])
+
+
+def _pairwise_rank(cvecs, metric):
+    """Candidate-to-candidate rank distances ``[..., C, C]`` of ``cvecs``
+    ``[..., C, d]`` (selection only): the rows widened to f32 (bf16 products
+    are exact there) and multiplied in full f32, as the JAX package's
+    ``preferred_element_type=f32``."""
+    v = cvecs.float()
+    no_tf32(v)
+    dots = torch.matmul(v, v.transpose(-1, -2))
+    if metric == "l2":
+        sq = (v * v).sum(dim=-1)
+        return (sq[..., :, None] + sq[..., None, :] - 2 * dots).clamp_min(0.0).sqrt()
+    return 1.0 - dots if metric == "cosine" else -dots
 
 
 class DeviceGraph:
@@ -276,11 +294,11 @@ def _chunk(fit: int) -> int:
 
 
 class _Beam:
-    """The layer-0 beam of ``rows`` queries, in tensors that keep their
-    storage from step to step (a captured graph reads and writes them in
-    place): the sorted beam (rank, slot, expanded flag), the visited bitset,
-    the traversal queries, each row's count of fresh neighbours scored, and
-    the count of converged rows after the last block of steps."""
+    """The beam of ``rows`` queries (a build's: lanes), in tensors that keep
+    their storage from step to step (a captured graph reads and writes them
+    in place): the sorted beam (rank, slot, expanded flag), the visited
+    bitset, the traversal queries, each row's count of fresh neighbours
+    scored, and the count of converged rows after the last block of steps."""
 
     def __init__(self, rows, ef, words, d, dtype, dev):
         self.d = torch.empty((rows, ef), device=dev)
@@ -370,29 +388,89 @@ def _traversal_rank(rows, q, metric):
     return _rank_rows(rows, q, metric)
 
 
-def _step(beam, xt, a0x, metric, w):
-    """One layer-0 step (hnsw.rs:375-434, widened) on ``beam``'s buffers, in
+def _seed(beam, d, slots):
+    """Seeds ``beam``'s first ``b`` rows with ranks ``d`` [b, s] and slots
+    ``slots`` [b, s] (distinct in a row, so the bits' scatter-add is exact;
+    -1 where ``d`` is +inf: no seed, written at +inf with no bit)."""
+    b, s = slots.shape
+    ok = slots >= 0
+    beam.d[:b, :s] = torch.where(ok, d, float("inf"))
+    beam.id[:b, :s] = slots
+    _set_bits(beam.visited[:b], slots.clamp_min(0), ok)
+
+
+def _adjacency(a0, up_adj, up_index, layer, start=None):
+    """``nodes [...] -> neighbours [..., deg]`` (int64) of one layer: ``a0``
+    at layer 0, above it the node's upper row (-1 for a node without one).
+    With ``start`` (a build's count of inserted slots) the slots at or past
+    it are -1 too: they are not in the graph yet."""
+    def rows(nodes):
+        if layer == 0:
+            got = a0[nodes].long()
+        else:
+            u = up_index[nodes].long()
+            got = up_adj[u.clamp_min(0), layer - 1].long()
+            got = torch.where((u >= 0)[..., None], got, -1)
+        return got if start is None else torch.where(got < start, got, -1)
+    return rows
+
+
+def _descend(xt, adj, q, g, moved, metric, read=lambda flags: bool(flags.any())):
+    """Greedy descent on one upper layer (hnsw.rs:336-372) for the lanes of
+    ``q`` [b, d] from the slots ``g`` [b]: while a lane where ``moved``
+    holds has a neighbour (``adj``, -1 for none) closer than its slot, it
+    moves to the closest; the other lanes keep ``g``. A lane that stopped
+    stays stopped. ``read`` is the host read of whether any lane moved (the
+    search's is an ``index.wait`` span)."""
+    gd = _rank_rows(xt[g][:, None, :], q, metric)[:, 0]
+    while read(moved):
+        row = adj(g[:, None])[:, 0]
+        dists = _rank_rows(xt[row.clamp_min(0)], q, metric).masked_fill(row < 0, float("inf"))
+        j = dists.argmin(dim=1, keepdim=True)  # the first of equal minima
+        best = dists.gather(1, j)[:, 0]
+        moved = moved & (best < gd)
+        g = torch.where(moved, row.gather(1, j)[:, 0], g)
+        gd = torch.where(moved, best, gd)
+    return g
+
+
+def _repeats(keys):
+    """Whether each of ``keys`` [..., k] repeats an earlier key of its row.
+    A stable sort puts equal keys together in their order; all but the first
+    of a run repeat."""
+    sorted_keys, perm = torch.sort(keys, dim=-1, stable=True)
+    repeat = torch.zeros_like(keys, dtype=torch.bool)
+    repeat[..., 1:] = sorted_keys[..., 1:] == sorted_keys[..., :-1]
+    return torch.empty_like(repeat).scatter_(-1, perm, repeat)
+
+
+def _step(beam, xt, neighbours, rank, metric, w):
+    """One beam step (hnsw.rs:375-434, widened) on ``beam``'s buffers, in
     place: the ``w`` best unexpanded entries of each row expand, their fresh
-    neighbours are scored and marked visited, and the best ``ef`` of beam
-    and neighbours stay. A converged row expands nothing and keeps its beam.
-    The loop is bound by its launches (eagerly) or by the card, so a step is
+    neighbours are scored by ``rank`` and marked visited, each row's count
+    of them is added to ``scored``, and the best ``ef`` of beam and
+    neighbours stay. A converged row expands nothing and keeps its beam.
+
+    ``neighbours(nodes, expand)`` gives the neighbours [b, w * deg] of the
+    entries ``nodes`` [b, w] (-1 where a beam holds fewer), -1 wherever a
+    neighbour is not eligible: every position whose ``expand`` is false,
+    and for a build the slots not yet inserted. The duplicate test runs on
+    these keys, so an ineligible earlier copy of a slot cannot hide an
+    eligible later one.
+
+    The search captures this step in a CUDA graph: it reads nothing on the
+    host, makes no shape from data and branches on no tensor value. The
+    loop is bound by its launches (eagerly) or by the card, so a step is
     written with few tensor calls: the beam stays sorted (its worst entry is
-    its last), ``a0x``'s row of -1 gives an unexpanded node no neighbours,
-    rows are gathered by ``index_select`` and the bit arithmetic reuses its
-    shifts."""
+    its last), rows are gathered by ``index_select`` and the bit arithmetic
+    reuses its shifts."""
     inf = float("inf")
-    n = a0x.shape[0] - 1
     top_d, jpos, done = _frontier(beam, w)
     expand_ok = torch.isfinite(top_d.masked_fill(done[:, None], inf))
-    nodes = torch.where(expand_ok, beam.id.gather(1, jpos), n)
-    nbrs = a0x.index_select(0, nodes.reshape(-1)).reshape(nodes.shape[0], -1).long()
+    nbrs = neighbours(beam.id.gather(1, jpos), expand_ok)
     # two expanded nodes can share a neighbour: keep its first place in the
-    # step (the bitset's scatter-add needs unique bits). A stable sort puts
-    # equal slots together in step order; all but the first of a run repeat
-    sorted_nbrs, perm = torch.sort(nbrs, dim=1, stable=True)
-    repeat = torch.zeros_like(nbrs, dtype=torch.bool)
-    repeat[:, 1:] = sorted_nbrs[:, 1:] == sorted_nbrs[:, :-1]
-    dup = torch.empty_like(repeat).scatter_(1, perm, repeat)
+    # step (the bitset's scatter-add needs unique bits)
+    dup = _repeats(nbrs)
     safe = nbrs.clamp_min(0)
     word, shift = safe >> 5, safe & 31
     seen = (beam.visited.gather(1, word) >> shift) & 1
@@ -400,7 +478,7 @@ def _step(beam, xt, a0x, metric, w):
     # bits of fresh positions only (unique, unset); the rest add 0
     beam.visited.scatter_add_(1, word, fresh.long() << shift)
     rows = xt.index_select(0, safe.reshape(-1)).reshape(*safe.shape, -1)
-    nd = _traversal_rank(rows, beam.qt, metric).masked_fill(~fresh, inf)
+    nd = rank(rows, beam.qt, metric).masked_fill(~fresh, inf)
     beam.scored += fresh.sum(dim=1)
     cat_d = torch.cat([beam.d, nd], dim=1)
     cat_id = torch.cat([beam.id, nbrs.masked_fill(~fresh, -1)], dim=1)
@@ -414,10 +492,10 @@ def _step(beam, xt, a0x, metric, w):
     torch.gather(cat_exp, 1, order, out=beam.exp)
 
 
-def _steps(beam, k, xt, a0x, metric, w):
+def _steps(beam, k, xt, neighbours, rank, metric, w):
     """``k`` steps, then the count of converged rows into ``beam.n_done``."""
     for _ in range(k):
-        _step(beam, xt, a0x, metric, w)
+        _step(beam, xt, neighbours, rank, metric, w)
     beam.n_done.copy_(_frontier(beam, w)[2].sum())
 
 
@@ -476,6 +554,13 @@ def search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, quer
 
     parts = beams if beams is not None else BeamGraphs()
     a0x = parts.adjacency(a0)
+    idle = a0x.shape[0] - 1  # a0x's row of -1: an entry that does not expand
+
+    def neighbours(nodes, expand):
+        nodes = torch.where(expand, nodes, idle)
+        return a0x.index_select(0, nodes.reshape(-1)).reshape(nodes.shape[0], -1).long()
+
+    rank = _traversal_rank  # looked up per call: the card tests replace it
     rows, beam = B, None
     if beams is not None and dev.type == "cuda":
         rows = _bucket(B)
@@ -493,40 +578,20 @@ def search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, quer
         beam = _Beam(B, ef, words, q.shape[1], xt.dtype, dev)
     try:
         beam.reset()
-        beam_d, beam_id, visited = beam.d[:B], beam.id[:B], beam.visited[:B]
         if use_hubs:
             # ---- hub seeding: one dense scan of the top-H-by-level nodes
             hd = _rank_matrix(qt, hub_x, metric)
             if hub_valid is not None:
                 hd = hd.masked_fill(~hub_valid[None, :], float("inf"))
-            seed_d, hpos = smallest(hd, S)
-            ok_seed = torch.isfinite(seed_d)
-            seeds = torch.where(ok_seed, hub_slots[hpos], -1)
-            beam_d[:, :S] = seed_d  # ascending, +inf where no seed
-            beam_id[:, :S] = seeds
-            # hub positions are distinct, so the scatter-add stays exact
-            _set_bits(visited, seeds.clamp_min(0), ok_seed)
+            seed_d, hpos = smallest(hd, S)  # ascending, +inf where no seed
+            _seed(beam, seed_d, torch.where(torch.isfinite(seed_d), hub_slots[hpos], -1))
         else:
             # ---- greedy descent over the upper layers (hnsw.rs:302-305,336-372)
             g = torch.full((B,), int(entry_slot), dtype=torch.int64, device=dev)
             for layer in range(min(lmax, int(entry_level)), 0, -1):
-                gd = _rank_rows(xt[g][:, None, :], qt, metric)[:, 0]
-                moved = torch.ones(B, dtype=torch.bool, device=dev)
-                while _any_on_host(moved):
-                    u = up_index[g].long()
-                    row = up_adj[u.clamp_min(0), layer - 1].long()
-                    row = torch.where((u >= 0)[:, None], row, torch.full_like(row, -1))
-                    ok = row >= 0
-                    dists = torch.where(ok, _rank_rows(xt[row.clamp_min(0)], qt, metric),
-                                        torch.full(row.shape, float("inf"), device=dev))
-                    j = dists.argmin(dim=1, keepdim=True)
-                    best = dists.gather(1, j)[:, 0]
-                    moved = best < gd  # a lane that stopped stays stopped
-                    g = torch.where(moved, row.gather(1, j)[:, 0], g)
-                    gd = torch.where(moved, best, gd)
-            beam_d[:, 0] = _rank_rows(xt[g][:, None, :], qt, metric)[:, 0]
-            beam_id[:, 0] = g
-            _set_bits(visited, g[:, None], torch.ones((B, 1), dtype=torch.bool, device=dev))
+                g = _descend(xt, _adjacency(a0, up_adj, up_index, layer), qt, g,
+                             torch.ones(B, dtype=torch.bool, device=dev), metric, _any_on_host)
+            _seed(beam, _rank_rows(xt[g][:, None, :], qt, metric), g[:, None])
         beam.qt[:B] = qt
         if rows > B:  # pad rows repeat the first query: they converge with it
             for t in (beam.d, beam.id, beam.visited, beam.qt):
@@ -536,7 +601,7 @@ def search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, quer
         # the count of converged rows read after each (the last block may be
         # shorter, and runs eagerly)
         def block(k=_DONE_EVERY):
-            _steps(beam, k, xt, a0x, metric, W)
+            _steps(beam, k, xt, neighbours, rank, metric, W)
 
         steps = 0
         while steps < max_steps:
@@ -559,6 +624,7 @@ def search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, quer
         # ---- exact epilogue: re-score every surviving beam entry from the
         # f32 block and order by (f32 rank, lex id) — hnsw.rs:322-333's
         # (dist, external_id) sort — so bf16 traversal never affects ranking
+        beam_id = beam.id[:B]
         ok = beam_id >= 0
         safe = beam_id.clamp_min(0)
         if valid is not None:

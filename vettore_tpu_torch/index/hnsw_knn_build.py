@@ -44,8 +44,8 @@ import torch
 
 from ..ops.distance import no_tf32
 from ..ops.topk import lex_sort, smallest
-from .hnsw_build import _BIG32, BulkGraph, _heuristic_select, _prep_order, _slot_block
-from .hnsw_device import _rank_rows
+from .hnsw_build import BulkGraph, _heuristic_select, _prep_order, _slot_block
+from .hnsw_device import _BIG32, _pairwise_rank, _rank_rows, _repeats
 
 GROUP = 64
 #: neighbor blocks scored per block (x64 rows = the candidate pool per row)
@@ -76,24 +76,6 @@ def _mm(a, b):
     a, b = a.float(), b.float()
     no_tf32(a)
     return torch.matmul(a, b)
-
-
-def _gram(v):
-    """f32 products of every pair of rows of ``v`` [..., C, d] (one widened
-    copy)."""
-    v = v.float()
-    no_tf32(v)
-    return torch.matmul(v, v.transpose(-1, -2))
-
-
-def _rank_from_dots(dots, rsq, csq, metric):
-    """Ascending rank distances from dot products. ``rsq``/``csq`` are
-    squared norms (only consulted for l2)."""
-    if metric == "cosine":
-        return 1.0 - dots
-    if metric == "l2":
-        return (rsq[..., :, None] + csq[..., None, :] - 2.0 * dots).clamp_min(0.0).sqrt()
-    return -dots  # inner_product
 
 
 def _sqnorm(rows):
@@ -213,9 +195,10 @@ def _knn_chunk(adj, dist, xs, valid_s, lex_s, slot_s, nb_chunk, g0, *, metric, d
 
     dots = _mm(rows, pool.transpose(1, 2))
     if metric == "l2":
-        rank = _rank_from_dots(dots, _sqnorm(rows), _sqnorm(pool), metric)
+        rsq, csq = _sqnorm(rows), _sqnorm(pool)
+        rank = (rsq[..., :, None] + csq[..., None, :] - 2.0 * dots).clamp_min(0.0).sqrt()
     else:
-        rank = _rank_from_dots(dots, None, None, metric)
+        rank = 1.0 - dots if metric == "cosine" else -dots
 
     # candidate metadata in sorted-row space
     pos_c = (nb_chunk[:, :, None] * GROUP
@@ -249,8 +232,8 @@ def _knn_chunk(adj, dist, xs, valid_s, lex_s, slot_s, nb_chunk, g0, *, metric, d
     cat_rank = cat_rank.gather(2, order)
     cat_cidx = cat_cidx.gather(2, order)
     C4 = cat_cidx.shape[-1]
-    earlier = torch.ones((C4, C4), dtype=torch.bool, device=dev).tril(-1)  # [i, j]: j < i
-    dup = ((cat_cidx[..., None, :] == cat_cidx[..., :, None]) & earlier).any(dim=-1)
+    # a probed block's best row may be in the shortlist too: keep its first place
+    dup = _repeats(cat_cidx)
     top_rank = torch.where(dup, torch.full_like(cat_rank, float("inf")), cat_rank)
     top_cidx = torch.where(dup, torch.zeros_like(cat_cidx), cat_cidx)
 
@@ -259,13 +242,7 @@ def _knn_chunk(adj, dist, xs, valid_s, lex_s, slot_s, nb_chunk, g0, *, metric, d
                            slot_s[top_pos])
 
     cvecs = pool.gather(1, top_cidx.reshape(G, GROUP * C4, 1).expand(-1, -1, d))
-    cvecs = cvecs.reshape(G, GROUP, C4, d)
-    pdots = _gram(cvecs)
-    if metric == "l2":
-        cs2 = _sqnorm(cvecs)
-        pr = _rank_from_dots(pdots, cs2, cs2, metric)
-    else:
-        pr = _rank_from_dots(pdots, None, None, metric)
+    pr = _pairwise_rank(cvecs.reshape(G, GROUP, C4, d), metric)
     sel_slot, sel_d = _heuristic_select(top_slot, top_rank, pr, deg)
 
     # scatter by slot (invalid rows land in the trash row)
@@ -332,13 +309,7 @@ def _reciprocal_pass(adj, dist, xt, lex_rank, nl, *, metric, deg):
         dup[:, 1:] = (cand_s[:, 1:] == cand_s[:, :-1]) & (cand_s[:, 1:] >= 0)
         cd = torch.where(dup, torch.full_like(cd, float("inf")), cd)
         cand_s = torch.where(dup, torch.full_like(cand_s, -1), cand_s)
-        cvecs = xt[cand_s.clamp(0, n - 1)]
-        pdots = _gram(cvecs)
-        if metric == "l2":
-            cs2 = _sqnorm(cvecs)
-            pr = _rank_from_dots(pdots, cs2, cs2, metric)
-        else:
-            pr = _rank_from_dots(pdots, None, None, metric)
+        pr = _pairwise_rank(xt[cand_s.clamp(0, n - 1)], metric)
         pruned[rows_c] = _heuristic_select(cand_s, cd, pr, deg)[0]
     return pruned
 
