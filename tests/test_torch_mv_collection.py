@@ -69,11 +69,14 @@ def _assert_same(got, want):
 
 
 def _compare(jcol, tcol, sets, limit=7, metric=None):
-    _assert_same(_hits(tcol.multi_vector_search_batch(sets, limit=limit, metric=metric)),
-                 _hits(jcol.multi_vector_search_batch(sets, limit=limit, metric=metric)))
-    for qs in sets[:2]:
-        _assert_same(_hits([tcol.multi_vector_search(qs, limit=limit, metric=metric)]),
-                     _hits([jcol.multi_vector_search(qs, limit=limit, metric=metric)]))
+    # the sets as lists of floats (the port's per-token loop) and as ndarray
+    # rows (its block path), the same values
+    for form in (sets, [list(np.asarray(qs)) for qs in sets]):
+        _assert_same(_hits(tcol.multi_vector_search_batch(form, limit=limit, metric=metric)),
+                     _hits(jcol.multi_vector_search_batch(form, limit=limit, metric=metric)))
+        for qs in form[:2]:
+            _assert_same(_hits([tcol.multi_vector_search(qs, limit=limit, metric=metric)]),
+                         _hits([jcol.multi_vector_search(qs, limit=limit, metric=metric)]))
     assert tcol.host_routes == 0
 
 

@@ -13,7 +13,8 @@ annotations) inside the caller's ``record_function``, and ranges of
 ``step_bound``) and the nodes it scored; ``sharded_search`` on a CPU mesh
 records one ``mesh.launch`` and one ``mesh.wait`` per shard a call, and
 counts its norm passes (``mesh.norms``): one a shard on a block's first
-call, 0 on the next. A new
+call, 0 on the next; a hybrid call's query token checks count their
+per-token fallbacks (``collection.token_fallbacks``). A new
 profiling session starts an empty registry; every recorded name is
 declared; ``Collection.stats()`` keeps its meaning with and without a
 profiler; threads' spans add up.
@@ -363,6 +364,25 @@ def test_hybrid_candidates_count_the_union(colbert, monkeypatch):
     # each query keeps at least one generator's candidates
     assert sum(seen) >= (4 + 6) * 40
     assert snap["counters"]["hybrid.reruns"] == 0
+
+
+def test_token_fallbacks_count_the_per_token_loop(colbert):
+    """``collection.token_fallbacks`` reads 0 for a batch of ndarray token
+    sets (the block path) and 1 for the same batch with one token a list of
+    floats (the per-token loop); both give the same answers."""
+    col, tokens = colbert
+    sets = [list(s) for s in tokens[:4] + 0.1 * np.random.default_rng(4).normal(
+        size=tokens[:4].shape).astype(np.float32)]
+    listed = [list(s) for s in sets]
+    listed[2][1] = [float(v) for v in listed[2][1]]
+    answers = []
+    for query_sets, fallbacks in ((sets, 0), (listed, 1)):
+        with _profiler():
+            answers.append(_hits(col.hybrid_search_batch(
+                np.stack([np.mean(s, axis=0) for s in sets]), limit=5,
+                generators=COLBERT_GENS, rerank=("multi_vector", query_sets))))
+        assert obs.snapshot()["counters"]["collection.token_fallbacks"] == fallbacks
+    assert answers[0] == answers[1]
 
 
 def test_hybrid_reruns_follow_host_routes():

@@ -1111,6 +1111,38 @@ class Collection:
     # ------------------------------------------------------------------
 
     def _prepare_query_vectors(self, query_vectors) -> np.ndarray:
+        return self._prepare_token_sets([query_vectors])[0]
+
+    def _prepare_token_sets(self, query_sets):
+        """A call's query token sets checked and normalised: ``(block [ΣQ, d]
+        f32, lengths)``, the sets' rows in order. Sets (non-empty lists or
+        tuples) of ``(d,)`` integer or float ndarrays take one float64 range
+        test (every value within ±F32_MAX, which NaN and ±inf fail) and one
+        ``normalize_rows`` over the block, whose reductions are row-local, so
+        each row's bits are its own call's. Any other input, or a block that
+        fails the test, takes the per-token loop, which raises the first bad
+        token's error (``collection.token_fallbacks``)."""
+        rows, lengths = [], []
+        for qs in query_sets:
+            if not isinstance(qs, (list, tuple)) or not qs:
+                break
+            rows.extend(qs)
+            lengths.append(len(qs))
+        else:
+            d = self.dimensions
+            if all(type(t) is np.ndarray and t.shape == (d,) and t.dtype.kind in "iuf"
+                   for t in rows):
+                block = np.concatenate(rows, dtype=np.float64).reshape(len(rows), -1)
+                with np.errstate(invalid="ignore"):
+                    if -F32_MAX <= block.min() and block.max() <= F32_MAX:
+                        count_event("collection.token_fallbacks", 0)
+                        return normalize_rows(block, self.normalize), lengths
+        count_event("collection.token_fallbacks")
+        per = [self._token_rows(qs) for qs in query_sets]
+        return np.concatenate(per), [len(p) for p in per]
+
+    def _token_rows(self, query_vectors) -> np.ndarray:
+        """One query token set, checked and normalised token by token."""
         if not isinstance(query_vectors, (list, tuple)) or not query_vectors:
             raise E.InvalidMultiVector("invalid multi vector")
         rows = []
@@ -1450,13 +1482,11 @@ class Collection:
         f32, qmask [B, Qmax] bool)`` with Qmax the next power of two of the
         longest set."""
         with span("collection.validate_tokens"):
-            per = [self._prepare_query_vectors(qs) for qs in query_sets]
-            qmax = _pow2_at_least(max(p.shape[0] for p in per), 1)
-            qtok = np.zeros((len(per), qmax, self.dimensions), np.float32)
-            qmask = np.zeros((len(per), qmax), bool)
-            for i, p in enumerate(per):
-                qtok[i, : p.shape[0]] = p
-                qmask[i, : p.shape[0]] = True
+            block, lengths = self._prepare_token_sets(query_sets)
+            lengths = np.asarray(lengths)
+            qmask = np.arange(_pow2_at_least(int(lengths.max()), 1)) < lengths[:, None]
+            qtok = np.zeros((*qmask.shape, self.dimensions), np.float32)
+            qtok[qmask] = block  # row-major: the sets' rows in order
             return qtok, qmask
 
     def _mv_slots_to_results(self, cache, slots, scores, metric) -> list:

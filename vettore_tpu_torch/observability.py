@@ -90,6 +90,7 @@ COUNTERS = (
     "hybrid.candidates",  # live candidates after a hybrid batch's union, summed over its queries
     "hybrid.reruns",      # hybrid batch queries re-run alone (their share of host_routes)
     "mesh.norms",     # sharded_search's squared-norm passes over a shard (its memo's misses)
+    "collection.token_fallbacks",  # query token checks that took the per-token loop
 )
 
 
