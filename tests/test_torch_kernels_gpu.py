@@ -390,6 +390,37 @@ def test_pipelines_on_card_match_cpu(cuda, monkeypatch, mode, d):
     assert (got[1].cpu() - want[1]).abs().max().item() <= 1e-5
 
 
+def test_hamming_slots_at_a_wide_d_need_no_global_composite(cuda, monkeypatch):
+    """The group cover's position keys at d = 3072, where a million rows
+    would need a 32-bit global (hamming, slot) key: with that key refused,
+    K6 and K7's selection on the card equals the CPU's plain one and a
+    brute (hamming, slot) sort, every query ``ok``, on heavy ties."""
+    from vettore_tpu_torch.ops import pipeline as pipe
+
+    monkeypatch.setattr(pipe, "_GROUP_COVER_MIN", 2048)
+    monkeypatch.setattr(pipe, "_composite_bits", lambda n, d: None)
+    rng = np.random.default_rng(7)
+    n, d, b, count = 16384, 3072, 24, 200
+    base = rng.integers(0, 2, (40, d)) * 2 - 1
+    signs = torch.from_numpy(base[rng.integers(0, 40, n)].astype(np.int8))
+    valid = torch.arange(n) < n - 11
+    valid[[0, 64, 65, 999]] = False
+    qs = torch.from_numpy(np.where(rng.normal(size=(b, d)) >= 0, 1, -1).astype(np.int8))
+    before = dict(fs.LAUNCHES)
+    got = pipe._hamming_slots(signs.to(cuda), valid.to(cuda), qs.to(cuda), count=count, d=d)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["sign_scan"] > before["sign_scan"]
+    want = pipe._hamming_slots(signs, valid, qs, count=count, d=d)
+    ham = (d - qs.long() @ signs.long().T) // 2
+    key = torch.where(valid[None, :], ham * n + torch.arange(n)[None, :], 2**62)
+    brute = key.topk(count, dim=1, largest=False).values
+    assert bool(got[2].all()) and bool(want[2].all())
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got[0].cpu(), brute % n)
+    assert torch.equal(got[1].cpu(), (brute // n).float())
+
+
 def test_adaptive_kernels_refuse_wrong_operands(cuda):
     x, xsq, bias, q = _operands(1024, 256, 8, "f32", cuda)
     with pytest.raises(ValueError, match="contiguous"):

@@ -146,6 +146,71 @@ def test_hamming_slots_without_the_kernel_gate_matches_jax(monkeypatch):
         np.testing.assert_array_equal(g, w)
 
 
+def _tied_signs(n, d, b, seed, *, dead=()):
+    """``(signs [n, d], valid [n], qsigns [b, d])``: rows drawn from 9 sign
+    patterns (hundreds of rows tie at every Hamming value), the last 5 slots
+    and the slots ``dead`` invalid."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 2, (9, d)) * 2 - 1
+    signs = base[rng.integers(0, 9, n)].astype(np.int8)
+    valid = np.arange(n) < n - 5
+    valid[list(dead)] = False
+    qs = np.where(rng.normal(size=(b, d)) >= 0, 1, -1).astype(np.int8)
+    return signs, valid, qs
+
+
+def _hamming_oracle(signs, valid, qs, count, d):
+    """The first ``count`` valid rows of each query by (hamming, slot), by
+    NumPy's lexsort: ``(slots [b, count] int64, hams [b, count])``."""
+    ham = (d - qs.astype(np.int64) @ signs.astype(np.int64).T) // 2
+    slots = np.arange(signs.shape[0])
+    out_s, out_h = [], []
+    for h in ham:
+        order = np.lexsort((slots[valid], h[valid]))[:count]
+        out_s.append(slots[valid][order])
+        out_h.append(h[valid][order])
+    return np.stack(out_s), np.stack(out_h)
+
+
+@pytest.mark.parametrize("n,d,count", [(8192, 96, 64), (8192, 256, 100), (4096, 33, 7),
+                                       (16384, 300, 200)])
+def test_hamming_slots_need_no_global_composite(monkeypatch, n, d, count):
+    """With the global (hamming, slot) composite unavailable (as at 1M rows
+    and d >= 2048, where it needs 32 bits), the group cover still selects
+    exactly: every query ``ok``, the slots and Hamming values those of a
+    lexsort over every valid row, on heavy ties."""
+    monkeypatch.setattr(tpipe, "_GROUP_COVER_MIN", 2048)
+    monkeypatch.setattr(tpipe, "_composite_bits", lambda n, d: None)
+    calls = []
+    real = tfs.fused_sign_scan
+    monkeypatch.setattr(tfs, "fused_sign_scan", lambda *a, **k: calls.append(1) or real(*a, **k))
+    signs, valid, qs = _tied_signs(n, d, 3, seed=n + d, dead=(0, 64, 65, 700))
+    slots, ranks, ok = tpipe._hamming_slots(
+        torch.from_numpy(signs), torch.from_numpy(valid), torch.from_numpy(qs), count=count, d=d)
+    want_s, want_h = _hamming_oracle(signs, valid, qs, count, d)
+    assert calls and ok.all()
+    assert slots.dtype == torch.int64
+    np.testing.assert_array_equal(slots.numpy(), want_s)
+    np.testing.assert_array_equal(ranks.numpy(), want_h.astype(np.float32))
+
+
+@pytest.mark.parametrize("n,d,count", [(8192, 96, 100), (8192, 256, 7), (4096, 512, 60)])
+def test_hamming_slots_where_the_composite_fits_match_jax(monkeypatch, n, d, count):
+    """Where the JAX package's global composite fits, the cover's position
+    keys give its output bit for bit."""
+    for mod in (jpipe, tpipe):
+        monkeypatch.setattr(mod, "_GROUP_COVER_MIN", 2048)
+    signs, valid, qs = _tied_signs(n, d, 4, seed=d, dead=(3, 128, 129))
+    want = [np.asarray(a) for a in jpipe._hamming_slots(
+        jnp.asarray(signs), jnp.asarray(valid), jnp.asarray(qs), count=count, d=d)]
+    got = [t.numpy() for t in tpipe._hamming_slots(
+        torch.from_numpy(signs), torch.from_numpy(valid), torch.from_numpy(qs), count=count,
+        d=d)]
+    assert tpipe._composite_bits(n, d) is not None
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_candidate_generators_union_and_rerank_match_jax():
     (jx, jvalid, _jb, jsigns, _jxsq), (x, valid, _b, signs, _xsq), q, xsqs = _state("cosine")
     jxsq, xsq = xsqs[64]

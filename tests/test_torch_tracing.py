@@ -14,7 +14,10 @@ annotations) inside the caller's ``record_function``, and ranges of
 records one ``mesh.launch`` and one ``mesh.wait`` per shard a call, and
 counts its norm passes (``mesh.norms``): one a shard on a block's first
 call, 0 on the next; a hybrid call's query token checks count their
-per-token fallbacks (``collection.token_fallbacks``). A new
+per-token fallbacks (``collection.token_fallbacks``). A funnel or
+quantized batch call records its candidate stage, rerank, four reads and
+hydration, and counts the queries it sends to the host route
+(``adaptive.fallbacks``); the hybrid path records none of these. A new
 profiling session starts an empty registry; every recorded name is
 declared; ``Collection.stats()`` keeps its meaning with and without a
 profiler; threads' spans add up.
@@ -346,6 +349,76 @@ def test_hybrid_funnel_and_search_generators_have_their_spans(flat):
     assert "hybrid.hnsw" not in spans and "hybrid.quantized" not in spans
 
 
+#: each span of a funnel or quantized batch call: the pipeline's candidate
+#: stage and rerank, one host read of each of its four outputs, one hydration
+ADAPTIVE_SPANS = {"collection.validate": 1, "collection.normalize": 1,
+                  "adaptive.candidates": 1, "adaptive.rerank": 1, "adaptive.wait": 4,
+                  "collection.hydrate": 1}
+
+
+@pytest.mark.parametrize("mode", ["quantized", "funnel"])
+def test_adaptive_spans_per_call(flat, mode):
+    col, x = flat
+    call = getattr(col, f"{mode}_search_batch")
+    calls = 3
+    obs.reset()
+    plain = [_hits(call(x[i:i + 4], limit=3, candidates=20)) for i in range(calls)]
+    assert obs.snapshot() == {"spans": {}, "counters": {}}
+    with _profiler():
+        traced = [_hits(call(x[i:i + 4], limit=3, candidates=20)) for i in range(calls)]
+    assert plain == traced
+    snap = obs.snapshot()
+    spans = snap["spans"]
+    assert {n: s["count"] for n, s in spans.items()} == {
+        f"collection.{mode}_search_batch": calls,
+        **{n: calls * c for n, c in ADAPTIVE_SPANS.items()}}
+    assert snap["counters"] == {"adaptive.fallbacks": 0}
+    for name, s in spans.items():
+        assert 0 <= s["self_s"] <= s["total_s"], name
+    inside = sum(spans[n]["total_s"] for n in ADAPTIVE_SPANS)
+    assert inside <= spans[f"collection.{mode}_search_batch"]["total_s"]
+
+
+@pytest.mark.parametrize("mode", ["quantized", "funnel"])
+def test_adaptive_fallbacks_count_host_routes(flat, mode, monkeypatch):
+    """A query the device pipeline flags takes the host route: the counter
+    reads 1, as ``host_routes`` moves, and the route lies outside the
+    batch's hydration."""
+    col, x = flat
+    name = f"{mode}_pipeline_batch"
+    real = getattr(pipe, name)
+
+    def refuse_first(*args, **kwargs):
+        top, raws, ranks, ok = real(*args, **kwargs)
+        ok = ok.clone()
+        ok[0] = False
+        return top, raws, ranks, ok
+
+    want = _hits(getattr(col, f"{mode}_search_batch")(x[:4], limit=3, candidates=20))
+    monkeypatch.setattr(pipe, name, refuse_first)
+    routes = col.host_routes
+    with _profiler():
+        got = _hits(getattr(col, f"{mode}_search_batch")(x[:4], limit=3, candidates=20))
+    snap = obs.snapshot()
+    assert col.host_routes - routes == 1
+    assert snap["counters"]["adaptive.fallbacks"] == 1
+    assert snap["spans"]["collection.hydrate"]["count"] == 1
+    assert [[i for i, _s in row] for row in got] == [[i for i, _s in row] for row in want]
+
+
+def test_hybrid_records_no_adaptive_span(colbert, flat):
+    """The hybrid path calls the pipeline's generators and rerank itself: it
+    records none of the funnel and quantized calls' spans or counter."""
+    with _profiler():
+        _colbert_call(colbert, 4)
+        _colbert_call(colbert, 4, rerank="exact")
+        flat[0].hybrid_search_batch(flat[1][:4], limit=3, generators=["funnel", "quantized"])
+    snap = obs.snapshot()
+    assert not [n for n in (*snap["spans"], *snap["counters"]) if n.startswith("adaptive.")]
+    assert snap["spans"]["hybrid.funnel"]["count"] == 1
+    assert snap["spans"]["hybrid.quantized"]["count"] == 3
+
+
 def test_hybrid_candidates_count_the_union(colbert, monkeypatch):
     seen = []
     real = pipe.union_candidates
@@ -434,6 +507,7 @@ def test_every_recorded_name_is_declared(flat, hnsw, colbert):
         sharded_search(mesh, *blocks, xm[:4], metric="cosine", k=3)
         _colbert_call(colbert, 4)
         flat[0].hybrid_search_batch(flat[1][:4], limit=3, generators=["funnel", "search"])
+        flat[0].quantized_search_batch(flat[1][:4], limit=3)
     snap = obs.snapshot()
     assert set(snap["spans"]) <= set(obs.SPANS)
     # the beam's captured graphs exist on CUDA devices only (the card tests

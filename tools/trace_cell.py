@@ -65,7 +65,9 @@ def idle_by_span(events, card: int = 0) -> dict:
              if e.get("ph") == "X" and e.get("cat") == "cpu_op" and e.get("name") in names]
     tids = {e["tid"] for e in events if e.get("ph") == "X" and e.get("name") in names}
     roots = [(s, e) for s, e, n in spans
-             if n.startswith(("collection.search", "collection.hybrid_search", "mesh.search"))]
+             if n.startswith(("collection.search", "collection.hybrid_search",
+                              "collection.quantized_search", "collection.funnel_search",
+                              "mesh.search"))]
     if not roots:
         return {}
     lo, hi = min(s for s, _ in roots), max(e for _, e in roots)

@@ -1216,10 +1216,22 @@ class Collection:
     def _batch_results(self, cache, out, host_route, b=None) -> list:
         """Per-query Results from a batched pipeline's ``(slots, raws,
         ranks, ok)`` (its first ``b`` rows: the rest pad a mesh batch); a
-        query whose ``ok`` is False takes ``host_route(b)``."""
-        top, raws, ranks, finite = (t.cpu().numpy() for t in out)
-        return [self._slots_to_results(cache, top[i], raws[i], ranks[i]) if finite[i]
-                else host_route(i) for i in range(top.shape[0] if b is None else b)]
+        query whose ``ok`` is False takes ``host_route(b)`` (counted in
+        ``adaptive.fallbacks``, 0 included, outside ``collection.hydrate``)."""
+        host = []
+        for t in out:
+            with span("adaptive.wait"):
+                host.append(t.cpu().numpy())
+        top, raws, ranks, finite = host
+        b = top.shape[0] if b is None else b
+        flagged = [i for i in range(b) if not finite[i]]
+        count_event("adaptive.fallbacks", len(flagged))
+        with span("collection.hydrate"):
+            results = [self._slots_to_results(cache, top[i], raws[i], ranks[i]) if finite[i]
+                       else None for i in range(b)]
+        for i in flagged:
+            results[i] = host_route(i)
+        return results
 
     def _funnel_stages(self, stages, dimensions):
         if stages is None:

@@ -79,6 +79,9 @@ SPANS = tuple(f"collection.{op}" for op in COLLECTION_OPS) + (
     "hybrid.rerank",         # the exact or MaxSim rerank and its reads to the host
     "hybrid.wait",           # one host read of a rerank output or of the generators' ok flags
     "mmr.rerank",            # ops.mmr.mmr_rerank_batch, its read to the host included
+    "adaptive.candidates",   # a funnel or quantized pipeline's candidate stage (K5 / K6, K7)
+    "adaptive.rerank",       # its exact rerank of the candidates (ops.pipeline.rerank_batch)
+    "adaptive.wait",         # one host read of a funnel or quantized pipeline's output
 )
 
 #: every counter name, with what it counts
@@ -91,6 +94,7 @@ COUNTERS = (
     "hybrid.reruns",      # hybrid batch queries re-run alone (their share of host_routes)
     "mesh.norms",     # sharded_search's squared-norm passes over a shard (its memo's misses)
     "collection.token_fallbacks",  # query token checks that took the per-token loop
+    "adaptive.fallbacks",  # funnel or quantized queries whose device answer was flagged
 )
 
 

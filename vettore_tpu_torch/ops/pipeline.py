@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ..observability import span
 from . import flat_scan
 from .distance import no_tf32
 from .select import exact_top_c, exact_top_c_unique_int
@@ -194,10 +195,11 @@ def _hamming_slots(signs, valid, qsigns, *, count, d):
 
     Hamming values are integers — at 1M rows hundreds of rows tie at the
     count-th value, so a float rank + slack-bounded selection degenerates to
-    host fallbacks. Composite ``(ham << slot_bits) | slot`` int32 keys are
-    DISTINCT per valid row: selection is unconditionally exact and the slot
-    low-bits implement the (rank, id) tie-break (search.rs:23-29; blocks are
-    lex-sorted so slot order is id order).
+    host fallbacks. Composite int32 keys ``(ham << bits) | index`` are
+    DISTINCT per valid row, with ``index`` ordered like the slot: selection
+    is unconditionally exact and the low bits implement the (rank, id)
+    tie-break (search.rs:23-29; blocks are lex-sorted so slot order is id
+    order).
 
     Large blocks take a two-level GROUP-COVER path: element keys are
     distinct, so at most ``count`` groups can hold any top-``count``
@@ -205,23 +207,26 @@ def _hamming_slots(signs, valid, qsigns, *, count, d):
     element key — selecting the ``count`` smallest ``(group_min_ham,
     group_index)`` composites provably covers all top-``count`` elements.
     K6 writes the int16 Hamming matrix and its [B, N/64] group minima in one
-    pass, and K7 gathers the <= count covered groups.
+    pass, and K7 gathers the <= count covered groups. The covered groups are
+    gathered in ascending group order, so an element's position in the
+    gathered ``[B, count * 64]`` sub-block orders like its slot: the key's
+    low bits are that position (``(count * 64 - 1).bit_length()`` bits, 15
+    at 500 candidates), not the slot, and fit 31 bits where a global slot
+    would not (1M rows at d >= 2048: 12 + 20 bits).
 
     Returns ``(slots [B, count] int64 ascending-by-(ham, slot),
     ranks [B, count] f32 hamming (+inf pads), ok [B])``."""
     n = signs.shape[0]
-    slot_bits = _composite_bits(n, d)
-    if slot_bits is None:
-        rank_h = _hamming_rank(signs, valid, qsigns, d=d)
-        return exact_top_c(rank_h, None, c=count)
     b = qsigns.shape[0]
     dev = signs.device
     ng = n // _GROUP
     gbits = max(1, (ng - 1).bit_length()) if ng else 0
+    pos_bits = max(1, (count * _GROUP - 1).bit_length())
     if (
         n >= _GROUP_COVER_MIN
         and flat_scan.supports_sign_scan(n, d)
         and (d + 1).bit_length() + gbits <= 31
+        and d.bit_length() + pos_bits <= 31
         and ng > count
     ):
         gmin, ham16 = flat_scan.fused_sign_scan(signs, valid.to(torch.int8), qsigns, d=d)
@@ -230,25 +235,34 @@ def _hamming_slots(signs, valid, qsigns, *, count, d):
         gmin = gmin.clamp_max(d + 1)  # [B, NG]
         gcomp = (gmin << gbits) | torch.arange(ng, dtype=torch.int32, device=dev)[None, :]
         gslots, _gkeys = exact_top_c_unique_int(gcomp, c=count)
-        gc = gslots.clamp_min(0)
-        sub = flat_scan.extract_group_rows(ham16.view(b, ng, _GROUP), gc.int())  # [B, C, 64]
-        sub_slots = (gc[:, :, None] * _GROUP
-                     + torch.arange(_GROUP, device=dev)[None, None, :]).int()
+        # ascending group order (pads, if any, last), so that a position in
+        # the gathered sub-block orders like its slot
+        gsorted, gok = _sort_candidates(gslots)
+        sub = flat_scan.extract_group_rows(ham16.view(b, ng, _GROUP), gsorted.int())  # [B, C, 64]
+        place = torch.arange(count * _GROUP, dtype=torch.int32, device=dev).view(count, _GROUP)
         comp = torch.where(
-            (sub < _BIG16) & (gslots >= 0)[:, :, None],
-            (sub.int() << slot_bits) | sub_slots,
+            (sub < _BIG16) & gok[:, :, None],
+            (sub.int() << pos_bits) | place[None],
             _BIG32,
         ).reshape(b, count * _GROUP)
-        _pos, keys = exact_top_c_unique_int(comp, c=count)
-        # selection returns positions in ``comp`` (a gathered sub-block, not
-        # slot-indexed) — the global slot is the key's low bits
-        slots = torch.where(keys < _BIG32, (keys & ((1 << slot_bits) - 1)).long(), -1)
+        pos, keys = exact_top_c_unique_int(comp, c=count)
+        p = pos.clamp_min(0)
+        slots = torch.where(pos >= 0, gsorted.gather(1, p // _GROUP) * _GROUP + p % _GROUP, -1)
+        key_bits = pos_bits
     else:
+        # below _GROUP_COVER_MIN rows a global slot takes at most 16 bits,
+        # so the composite fits for any d below 2**15; a block past the
+        # cover's guards whose composite does not fit keeps the float path
+        slot_bits = _composite_bits(n, d)
+        if slot_bits is None:
+            rank_h = _hamming_rank(signs, valid, qsigns, d=d)
+            return exact_top_c(rank_h, None, c=count)
         ham = (d - flat_scan.sign_dots(qsigns, signs)) >> 1
         comp = (ham << slot_bits) | torch.arange(n, dtype=torch.int32, device=dev)[None, :]
         comp = torch.where(valid[None, :], comp, _BIG32)
         slots, keys = exact_top_c_unique_int(comp, c=count)
-    ranks = torch.where(keys < _BIG32, (keys >> slot_bits).float(), float("inf"))
+        key_bits = slot_bits
+    ranks = torch.where(keys < _BIG32, (keys >> key_bits).float(), float("inf"))
     return slots, ranks, torch.ones(b, dtype=torch.bool, device=dev)
 
 
@@ -295,18 +309,23 @@ def _funnel_stages(x, valid, queries, stage_xsq, *, metric, stages, count):
 def funnel_pipeline_batch(x, valid, queries, stage_xsq=None, *, metric, stages, count, limit):
     """Matryoshka funnel: prefix stages + exact rerank.
     Returns (slots [B, limit], raws, ranks, ok [B])."""
-    slots, slot_ok, ok = _funnel_stages(x, valid, queries, stage_xsq,
-                                        metric=metric, stages=stages, count=count)
-    top, raws, ranks, finite = rerank_batch(x, slots, slot_ok, queries, metric=metric,
-                                            limit=limit)
+    with span("adaptive.candidates"):
+        slots, slot_ok, ok = _funnel_stages(x, valid, queries, stage_xsq,
+                                            metric=metric, stages=stages, count=count)
+    with span("adaptive.rerank"):
+        top, raws, ranks, finite = rerank_batch(x, slots, slot_ok, queries, metric=metric,
+                                                limit=limit)
     return top, raws, ranks, ok & finite
 
 
 def quantized_pipeline_batch(x, signs, valid, queries, *, metric, count, limit, d):
     """Binary-quantized candidates (Hamming) + exact rerank."""
-    slots, slot_ok, sel_ok = quantized_candidates_batch(signs, valid, queries, count=count, d=d)
-    top, raws, ranks, finite = rerank_batch(x, slots, slot_ok, queries, metric=metric,
-                                            limit=limit)
+    with span("adaptive.candidates"):
+        slots, slot_ok, sel_ok = quantized_candidates_batch(signs, valid, queries, count=count,
+                                                            d=d)
+    with span("adaptive.rerank"):
+        top, raws, ranks, finite = rerank_batch(x, slots, slot_ok, queries, metric=metric,
+                                                limit=limit)
     return top, raws, ranks, sel_ok & finite
 
 
